@@ -9,8 +9,10 @@ Phases (any failure raises; the script exits non-zero and prints no result):
 1. build the native integral engine and the CUDA kernels K1-K3 from the
    checkout's sources, with the seconds each build took;
 2. each kernel against its plain torch version at the main path's shapes
-   (TTM/STO-3G and the nmo=1000 bench operator), f64 and f32, with median
-   CUDA-event times of both;
+   (TTM/STO-3G and the nmo=1000 bench operator; K3 also on the span of one
+   jvp group), f64 and f32, with median CUDA-event times of both and the
+   card's bound for the same work (``response/flops.py``); K1 also at its
+   edge cases (nocc above 256, nvir below one tile, one trial vector);
 3. the main path: X-TDA on the TTM radical (182 AO, ROKS/B3LYP, density
    fitted) through ``XTDA(load_mf(...), backend="df").kernel()`` in f64,
    gated against ``tests/data/golden_ttm.json``; every kernel must have
@@ -94,69 +96,112 @@ def phase1() -> dict:
     return dict(BUILD_SECONDS)
 
 
-# (label, nz, naux, nmo, ((nocc, nvir) of the alpha and beta blocks))
+# (label, nz, naux, nmo, ((nocc, nvir) of the alpha and beta blocks), the
+# grid chunks of one jvp group, the span K3 takes in one launch)
 MAIN_SHAPES = (
-    ("ttm", 10, 4412, 182, ((137, 45), (136, 46))),
-    ("bench", 20, 2000, 1000, ((80, 920), (78, 922))),
+    ("ttm", 10, 4412, 182, ((137, 45), (136, 46)), 23),
+    ("bench", 20, 2000, 1000, ((80, 920), (78, 922)), 12),
 )
+# K1 edge cases, checked but not timed: (label, nz, naux, nmo, nocc, nvir)
+K1_EDGES = (
+    ("nocc300_odd_naux", 4, 257, 340, 300, 40),
+    ("nvir_below_tile", 3, 100, 60, 50, 10),
+    ("nz1", 1, 96, 120, 30, 90),
+)
+
+
+def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None):
+    """Hold kern() against plain() (relative to max |plain|); time both
+    and add the bound when ``timed``."""
+    got = kern()
+    _sync()
+    want = plain()
+    _sync()
+    rec["max_abs_err"], rec["rel_err"] = rel_err(got, want)
+    del got, want
+    if timed:
+        from xtddft_tpu_torch.response.flops import bound_ms
+
+        rec["ms"] = time_ms(kern)
+        rec["plain_ms"] = time_ms(plain)  # the cuBLAS einsum route of the JAX code
+        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, rec["dtype"])
+        rec["library_ms"] = None  # no single PyTorch call computes the function
+    _log("phase 2", json.dumps(rec))
+    if not rec["rel_err"] <= rec["rtol"]:
+        raise AssertionError(f"{rec['kernel']} disagrees with its plain version: {rec}")
+    checks.append(rec)
 
 
 def phase2() -> dict:
     """Each kernel against its plain version, f64 and f32, TTM and bench
-    shapes, both spin blocks; times at the alpha block."""
+    shapes, both spin blocks (times and bounds at the alpha block); K3 also
+    on the span of one jvp group; K1 at its edge cases."""
     from xtddft_tpu_torch.kernels import df_exchange as k1
     from xtddft_tpu_torch.kernels import grid_back as k3
     from xtddft_tpu_torch.kernels import grid_rho1 as k2
-    from xtddft_tpu_torch.response.sigma_df import _aux_chunk
+    from xtddft_tpu_torch.response import flops as fl
 
     g = torch.Generator("cuda").manual_seed(1234)
     checks = []
     gc = 4096
     for dtype in (torch.float64, torch.float32):
         tol = F64_RTOL if dtype == torch.float64 else F32_RTOL
-        for label, nz, naux, nmo, blocks in MAIN_SHAPES:
+        dname = str(dtype).split(".")[-1]
+        isz = torch.empty((), dtype=dtype).element_size()
+        for label, nz, naux, nmo, blocks, nspan in MAIN_SHAPES:
             G = torch.randn((naux, nmo, 8), generator=g, device="cuda", dtype=dtype)
             B = torch.bmm(G, G.transpose(1, 2)) / (naux * nmo * 8) ** 0.5
             del G
-            # a grid chunk as the sigma sees it: a strided view of a padded table
-            phi_all = torch.randn((4, 2 * gc, nmo), generator=g, device="cuda",
+            span = nspan * gc
+            # grid points as the sigma sees them: strided views of a padded table
+            phi_all = torch.randn((4, gc + span, nmo), generator=g, device="cuda",
                                   dtype=dtype) / nmo ** 0.5
             phi = phi_all[:, gc:2 * gc]
+            phi_span = phi_all[:, gc:gc + span]
             mask = (torch.rand(gc, generator=g, device="cuda") > 0.05).to(dtype)
             for spin, (no, nv) in zip("ab", blocks):
                 z = torch.randn((nz, no, nv), generator=g, device="cuda", dtype=dtype)
-                dwv = torch.randn((nz, gc), generator=g, device="cuda", dtype=dtype)
-                dwg = torch.randn((nz, 3, gc), generator=g, device="cuda", dtype=dtype)
-                chunk = _aux_chunk(naux, nz, no, nv)
+                dwv = torch.randn((nz, span), generator=g, device="cuda", dtype=dtype)
+                dwg = torch.randn((nz, 3, span), generator=g, device="cuda", dtype=dtype)
                 out = torch.zeros((nz, no, nv), device="cuda", dtype=dtype)
-                runs = {
-                    k1.NAME: (lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, z, 0, no)]),
-                              lambda: torch.cat([x.flatten() for x in
-                                                 k1.df_exchange_plain(B, z, 0, no, chunk)])),
-                    k2.NAME: (lambda: k2.grid_rho1(phi, z, 0, no, mask),
-                              lambda: k2.grid_rho1_plain(phi, z, 0, no, mask)),
-                    k3.NAME: (lambda: k3.grid_back(dwv, dwg, phi, 0, no, out.zero_()).clone(),
-                              lambda: k3.grid_back_plain(dwv, dwg, phi, 0, no, out.zero_()).clone()),
-                }
-                for name, (kern, plain) in runs.items():
-                    got = kern()
-                    _sync()
-                    want = plain()
-                    _sync()
-                    err, rel = rel_err(got, want)
-                    rec = {"kernel": name, "shape": label, "spin": spin,
-                           "dtype": str(dtype).split(".")[-1], "nz": nz, "naux": naux,
-                           "nmo": nmo, "nocc": no, "nvir": nv, "gc": gc,
-                           "max_abs_err": err, "rel_err": rel, "rtol": tol}
-                    if spin == "a":
-                        rec["ms"] = time_ms(kern)
-                        rec["plain_ms"] = time_ms(plain)
-                    _log("phase 2", json.dumps(rec))
-                    if not rel <= tol:
-                        raise AssertionError(f"{name} disagrees with its plain version: {rec}")
-                    checks.append(rec)
-            del B, phi_all, phi
+                timed = spin == "a"
+
+                def rec(name, **kw):
+                    return {"kernel": name, "shape": label, "spin": spin, "dtype": dname,
+                            "nz": nz, "naux": naux, "nmo": nmo, "nocc": no, "nvir": nv,
+                            "rtol": tol, **kw}
+
+                _check(checks, rec(k1.NAME),
+                       lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, z, 0, no)]),
+                       lambda: torch.cat([x.flatten() for x in
+                                          k1.df_exchange_plain(B, z, 0, no)]),
+                       timed, fl.df_exchange_flops(naux, nz, no, nv),
+                       fl.df_exchange_bytes(naux, nz, no, nv, isz))
+                _check(checks, rec(k2.NAME, gc=gc),
+                       lambda: k2.grid_rho1(phi, z, 0, no, mask),
+                       lambda: k2.grid_rho1_plain(phi, z, 0, no, mask),
+                       timed, fl.grid_rho1_flops(nz, no, nv, gc),
+                       fl.grid_rho1_bytes(nz, no, nv, gc, isz))
+                one_chunk = (gc, phi, dwv[:, :gc].contiguous(), dwg[..., :gc].contiguous())
+                for pts, ph, dv, dg in (one_chunk, (span, phi_span, dwv, dwg)):
+                    _check(checks, rec(k3.NAME, gc=pts),
+                           lambda: k3.grid_back(dv, dg, ph, 0, no, out.zero_()).clone(),
+                           lambda: k3.grid_back_plain(dv, dg, ph, 0, no, out.zero_()).clone(),
+                           timed, fl.grid_back_flops(nz, no, nv, pts),
+                           fl.grid_back_bytes(nz, no, nv, pts, isz))
+            del B, phi_all, phi, phi_span
             torch.cuda.empty_cache()
+        for label, nz, naux, nmo, no, nv in K1_EDGES:
+            B = torch.randn((naux, nmo, nmo), generator=g, device="cuda", dtype=dtype)
+            z = torch.randn((nz, no, nv), generator=g, device="cuda", dtype=dtype)
+            # o and v blocks at offsets, as the beta block of a sigma reads them
+            o0, v0 = nmo - no - nv, nmo - nv
+            _check(checks, {"kernel": k1.NAME, "shape": label, "spin": "a", "dtype": dname,
+                            "nz": nz, "naux": naux, "nmo": nmo, "nocc": no, "nvir": nv,
+                            "rtol": tol},
+                   lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, z, o0, v0)]),
+                   lambda: torch.cat([x.flatten() for x in k1.df_exchange_plain(B, z, o0, v0)]),
+                   False)
     return {"checks": checks}
 
 
@@ -233,11 +278,11 @@ def phase3() -> dict:
 
 def phase4() -> dict:
     """Bench-shape synthetic operator, f32: sigma check and 20-root solve."""
-    from bench import matvec_flops
     from xtddft_tpu_torch.kernels import df_exchange as k1
     from xtddft_tpu_torch.kernels import grid_back as k3
     from xtddft_tpu_torch.kernels import grid_rho1 as k2
     from xtddft_tpu_torch.response import sigma_df
+    from xtddft_tpu_torch.response.flops import matvec_flops
     from xtddft_tpu_torch.solver.davidson import davidson
 
     nmo, nc, no, naux, ngrid, nroots = 1000, 78, 2, 2000, 49152, 20
@@ -275,6 +320,7 @@ def phase4() -> dict:
 
     x0 = op.init_guess(nroots)
     nb = x0.shape[0]
+    torch.cuda.reset_peak_memory_stats()
     s = time.perf_counter()
     e, _, conv, info = davidson(op.matvec, op.hdiag, nroots=nroots, init_guess=x0,
                                 tol=1e-3, max_space_factor=8, device=op.device,
@@ -286,7 +332,7 @@ def phase4() -> dict:
     rec = {"wall_s": wall, "cycles": cycles, "nb": nb, "nconv": int(conv.sum()),
            "nroots": nroots, "builds_per_s": cycles / wall,
            "tflops": flops * cycles / wall / 1e12, "flops_per_build": flops,
-           "e": e.tolist()}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "e": e.tolist()}
     _log("phase 4 solve", json.dumps(rec))
     if not (conv.sum() == nroots and np.all(np.isfinite(e)) and np.all(np.diff(e) >= 0)):
         raise AssertionError(f"bench solve: {rec}")
@@ -307,14 +353,15 @@ def main(argv=None) -> int:
 
     entries = []
     for m in kernels.MODULES:
-        main_check = next(c for c in record["kernels"]["checks"]
-                          if c["kernel"] == m.NAME and c["shape"] == "ttm"
-                          and c["dtype"] == "float64" and c["spin"] == "a")
+        # the main path's own shape: TTM, f64, alpha block; K3 on a jvp group's span
+        main_check = [c for c in record["kernels"]["checks"]
+                      if c["kernel"] == m.NAME and c["shape"] == "ttm"
+                      and c["dtype"] == "float64" and c["spin"] == "a"][-1]
         entries.append({
             "name": m.NAME, "route": m.ROUTE, "source": m.SOURCE, "replaces": m.REPLACES,
             "launches": record["ttm"]["launches"][m.NAME],
-            "max_abs_err": main_check["max_abs_err"],
-            "ms": main_check["ms"], "plain_ms": main_check["plain_ms"],
+            **{k: main_check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
         })
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

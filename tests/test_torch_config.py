@@ -1,0 +1,103 @@
+"""The port's device default and its own operation counts.
+
+Every entry point runs on the CUDA card unless the caller passes
+``device="cpu"``; without a card ``config.resolve()`` raises instead of
+moving to the CPU.  The card is hidden by patching
+``torch.cuda.is_available`` inside each test.  ``response/flops.py`` keeps
+the port's copy of the benchmark's flop count; it must equal
+``bench.matvec_flops``.
+"""
+
+import pathlib
+
+import pytest
+import torch
+
+import bench
+from xtddft_tpu_torch import config
+from xtddft_tpu_torch.response import flops, sigma_df
+from xtddft_tpu_torch.scf.checkpoint import load_mf
+
+CKPT = str(pathlib.Path(__file__).parent / "data" / "fh_entry_ckpt.npz")
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        config.resolve()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        config.resolve(None, torch.float32)
+
+
+def test_resolve_takes_the_cpu_when_asked(no_card):
+    assert config.resolve("cpu") == (torch.device("cpu"), torch.float64)
+    assert config.resolve(torch.device("cpu"), torch.float32) == (
+        torch.device("cpu"), torch.float32)
+
+
+ENTRY_POINTS = {
+    "load_mf": lambda: load_mf(CKPT, df=True),
+    "synthetic_df_data": lambda: sigma_df.synthetic_df_data(
+        nmo=12, nc=3, no=1, naux=8, ngrid=64),
+    "df_data_from_arrays": lambda: sigma_df.df_data_from_arrays({"nc": 1}, None),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_never_default_to_the_cpu(no_card, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[entry]()
+
+
+def test_entry_point_runs_on_the_cpu_when_asked(no_card):
+    data = sigma_df.synthetic_df_data(nmo=12, nc=3, no=1, naux=8, ngrid=64,
+                                      device="cpu", dtype=torch.float64)
+    assert data.B.device.type == "cpu"
+
+
+# (nc, no, nv, naux, ngrid, nb): TTM/STO-3G's 11-vector block and the bench operator
+SHAPES = {"ttm": (136, 1, 45, 4412, 187644, 11), "bench": (78, 2, 920, 2000, 49152, 21)}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+@pytest.mark.parametrize("hyb_terms", [1, 2])
+def test_matvec_flops_is_the_benchmarks(shape, hyb_terms):
+    assert flops.matvec_flops(*shape, hyb_terms=hyb_terms) == bench.matvec_flops(
+        *shape, hyb_terms=hyb_terms)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+def test_kernel_counts_add_up_to_the_sigma_count(shape):
+    """K1's t, T and K terms of both spin blocks are the exchange part of
+    matvec_flops (which also counts the Coulomb back-projection).  Its fxc
+    part counts four phi components both ways (8 flops per vector, point
+    and (o, v) pair each way); the GGA minimum of K2 and K3 is half that,
+    plus terms linear in nocc and nvir."""
+    nc, no, nv, naux, ngrid, nb = shape
+    blocks = ((nc + no, nv), (nc, no + nv))
+    k1 = sum(flops.df_exchange_flops(naux, nb, o, v) for o, v in blocks)
+    back = sum(2.0 * naux * o * v * nb for o, v in blocks)
+    jk = flops.matvec_flops(nc, no, nv, naux, 0, nb)
+    assert k1 + back == pytest.approx(jk, rel=1e-12)
+    fxc = sum(flops.grid_rho1_flops(nb, o, v, ngrid) + flops.grid_back_flops(nb, o, v, ngrid)
+              for o, v in blocks)
+    linear = sum(2.0 * nb * ngrid * (7 * o + 7 * v) for o, v in blocks)
+    assert fxc - linear == pytest.approx(0.5 * (flops.matvec_flops(*shape) - jk), rel=1e-12)
+
+
+def test_bounds_at_the_issue_shapes():
+    """K1 at the bench alpha block and K3 on one chunk of TTM and bench: flop
+    bound (K3 at its GGA minimum, 4*nz*nocc*nvir per point and lower terms)."""
+    ms, by = flops.bound_ms(flops.df_exchange_flops(2000, 20, 80, 920),
+                            flops.df_exchange_bytes(2000, 20, 80, 920, 4), "float32")
+    assert by == "operations" and 87 < ms < 89
+    ms, by = flops.bound_ms(flops.grid_back_flops(10, 137, 45, 4096),
+                            flops.grid_back_bytes(10, 137, 45, 4096, 8), "float64")
+    assert by == "operations" and 0.0155 < ms < 0.0161
+    ms, by = flops.bound_ms(flops.grid_back_flops(20, 80, 920, 4096),
+                            flops.grid_back_bytes(20, 80, 920, 4096, 4), "float32")
+    assert by == "operations" and 0.365 < ms < 0.372

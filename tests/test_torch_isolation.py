@@ -30,6 +30,7 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.response.reference_state",
     "xtddft_tpu_torch.response.sigma",
     "xtddft_tpu_torch.response.sigma_df",
+    "xtddft_tpu_torch.response.flops",
     "xtddft_tpu_torch.solver.davidson",
     "xtddft_tpu_torch.props.oscillator",
     "xtddft_tpu_torch.props.spin",
@@ -63,3 +64,15 @@ def test_import_leaves_jax_unloaded():
 def test_source_has_no_jax_import(path):
     src = path.read_text()
     assert not _JAXISH.search(src), f"{path} imports jax or xtddft_tpu"
+
+
+_BENCH = re.compile(r"^\s*(import\s+bench\b|from\s+bench\b)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_has_no_bench_import(path):
+    """The repository's ``bench.py`` belongs to the JAX system: the port
+    keeps its own copy of what it needs (``response/flops.py``)."""
+    assert not _BENCH.search(path.read_text()), f"{path} imports bench"

@@ -99,3 +99,39 @@ def test_grid_back_plain_matches_jax():
                        torch.as_tensor(phi), 0, NOCC, acc)
     assert out is acc  # accumulates in place
     _rel_close(out - 0.5, want, RTOL)
+
+
+def test_grid_back_span_equals_its_chunks():
+    """One K3 call on a span of grid chunks (as the sigma makes it, once per
+    jvp group) equals the sum of its per-chunk calls (plain version, f64)."""
+    rng = np.random.default_rng(3)
+    nchunk, gc = 3, 64
+    table = torch.as_tensor(rng.normal(size=(4, nchunk * gc + 32, NMO)))
+    phi = table[:, 16:16 + nchunk * gc]  # a strided view, as in the sigma
+    dwv = torch.as_tensor(rng.normal(size=(NZ, nchunk * gc)))
+    dwg = torch.as_tensor(rng.normal(size=(NZ, 3, nchunk * gc)))
+    span = k3.grid_back(dwv, dwg, phi, 0, NOCC, torch.zeros((NZ, NOCC, NMO - NOCC),
+                                                            dtype=torch.float64))
+    per = torch.zeros_like(span)
+    for c in range(nchunk):
+        k = slice(c * gc, (c + 1) * gc)
+        k3.grid_back(dwv[:, k], dwg[..., k], phi[:, k], 0, NOCC, per)
+    _rel_close(span, per.numpy(), RTOL)
+
+
+@pytest.mark.parametrize("naux", [1, 7, 257, 4412])
+@pytest.mark.parametrize("budget", [1, 10_000, 1 << 20, 1 << 30])
+def test_df_exchange_aux_plan_covers_naux(naux, budget):
+    """The K1 wrapper's T budget gives aux chunks that cover naux exactly,
+    each within the budget (a single aux index when even one is over)."""
+    nz, nocc, nvir, itemsize = 3, 11, 29, 8
+    per_aux = nocc * 88 * itemsize  # a T row of nz*nvir = 87 elements, padded to 16 bytes
+    chunk = k1.plan_aux_chunk(naux, nz, nocc, nvir, itemsize, budget)
+    # the [P0, P1) ranges the kernel walks
+    ranges = [(p0, min(naux, p0 + chunk)) for p0 in range(0, naux, chunk)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == naux
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(p1 - p0 == chunk for p0, p1 in ranges[:-1]) and ranges[-1][1] > ranges[-1][0]
+    assert chunk == 1 or chunk * per_aux <= budget
+    # as few chunks as the budget allows
+    assert len(ranges) == -(-naux // max(1, min(naux, budget // per_aux)))

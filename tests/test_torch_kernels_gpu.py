@@ -16,9 +16,18 @@ from xtddft_tpu_torch.kernels import df_exchange as k1
 from xtddft_tpu_torch.kernels import grid_back as k3
 from xtddft_tpu_torch.kernels import grid_rho1 as k2
 
-# (naux, nmo, nocc, nz, gc): a small case, the TTM alpha block, and the
-# largest nocc K1 takes (16 rows per thread)
-SHAPES = [(64, 40, 11, 3, 256), (4412, 182, 137, 10, 4096), (48, 300, 256, 2, 512)]
+# (naux, nmo, nocc, nz, gc), nvir = nmo - nocc
+SHAPES = {
+    "small": (64, 40, 11, 3, 256),
+    "ttm": (4412, 182, 137, 10, 4096),
+    "nocc256": (48, 300, 256, 2, 512),
+    "nocc300": (48, 340, 300, 2, 512),
+    "nz1": (96, 120, 30, 1, 256),
+    "nvir10": (100, 60, 50, 2, 256),  # nvir below one 16-wide k step
+    "odd": (257, 64, 21, 3, 300),  # odd naux, odd grid span
+    "bench": (2000, 1000, 80, 20, 4096),  # the bench operator's alpha block
+    "ttm_span": (256, 182, 137, 10, 23 * 4096),  # K3 on one jvp group of TTM
+}
 
 
 @pytest.fixture
@@ -34,7 +43,7 @@ def _rel_close(got, want, rtol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES, ids=["small", "ttm", "max_nocc"])
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11), (torch.float32, 1e-4)],
                          ids=["f64", "f32"])
 def test_kernels_match_plain(cuda, shape, dtype, rtol):
@@ -45,7 +54,7 @@ def test_kernels_match_plain(cuda, shape, dtype, rtol):
         return torch.randn(s, generator=g, device=cuda, dtype=dtype)
 
     B = randn(naux, nmo, nmo)
-    B = 0.5 * (B + B.transpose(1, 2))
+    B = (B + B.transpose(1, 2)).mul_(0.5)
     z = randn(nz, nocc, nmo - nocc)
     # the grid chunk as the sigma sees it: a strided view of a wider table
     table = randn(4, gc + 64, nmo)
@@ -54,9 +63,10 @@ def test_kernels_match_plain(cuda, shape, dtype, rtol):
     dwv, dwg = randn(nz, gc), randn(nz, 3, gc)
 
     t, K = k1.df_exchange(B, z, 0, nocc)
-    tp, Kp = k1.df_exchange_plain(B, z, 0, nocc)
+    tp, Kp = k1.df_exchange_plain(B, z, 0, nocc, 64)
     _rel_close(t, tp, rtol)
     _rel_close(K, Kp, rtol)
+    del B, t, K, tp, Kp
     _rel_close(k2.grid_rho1(phi, z, 0, nocc, mask),
                k2.grid_rho1_plain(phi, z, 0, nocc, mask), rtol)
     acc = randn(nz, nocc, nmo - nocc)

@@ -25,11 +25,12 @@ BUILD_SECONDS: dict[str, float] = {}
 BUILD_LOGS: dict[str, str] = {}
 
 
-def build_library(name: str, sources: list[pathlib.Path],
-                  command: list[str]) -> pathlib.Path:
-    """Compile ``sources`` with ``command + ["-o", out, *sources]``."""
+def build_library(name: str, sources: list[pathlib.Path], command: list[str],
+                  headers: tuple[pathlib.Path, ...] = ()) -> pathlib.Path:
+    """Compile ``sources`` with ``command + ["-o", out, *sources]``; the
+    ``headers`` they include count in the hash."""
     h = hashlib.sha256(" ".join(command).encode())
-    for s in sources:
+    for s in [*sources, *headers]:
         h.update(pathlib.Path(s).read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():

@@ -4,53 +4,100 @@
 // whose aux-chunked einsums compute, for trial vectors z[x, j, b]:
 //
 //   t[x, P]    = sum_jb B[P, o0+j, v0+b] z[x, j, b]
-//   T[x,P,j,a] = sum_b  B[P, v0+a, v0+b] z[x, j, b]            (half-transform)
-//   K[x, i, a] = sum_Pj B[P, o0+j, o0+i] T[x, P, j, a]
+//   T[P,j,x,a] = sum_b  z[x, j, b] B[P, v0+a, v0+b]             (half-transform)
+//   K[x, i, a] = sum_Pj B[P, o0+j, o0+i] T[P, j, x, a]
 //
-// What bounds it on an H100: flops.  T and K cost 2*naux*nocc*nvir*(nvir+nocc)
-// per vector and dominate the sigma build (bench shape: 1.2e13 flops per
-// 20-vector build), while B (8 GB in f32 at the bench shape) is streamed
-// once per trial vector, mostly out of the 50 MB L2 because the
-// trial-vector index is the fastest-varying block index.  The JAX code
-// bounds the T intermediate by aux chunking through HBM; here T never
-// reaches device memory: one block owns (vector x, a tile of TN virtuals,
-// a range of aux indices P), builds the (nocc x TN) T tile of each P in
-// shared memory and contracts it with B_oo[P] straight away, keeping its K
-// tile in registers across its P range.  Blocks that share an (x, a tile)
-// add their K into the zeroed output with atomics; t[x, P] is computed by
-// exactly one block.
+// Bound on an H100: flops, 2*naux*nz*nocc*nvir*(nvir+nocc+1) (5.9e12 at the
+// bench shape, 88 ms at 67 TFLOP/s in f32 FMA or f64 DMMA; 9.9e10 at
+// TTM/STO-3G, 1.5 ms); the o/v blocks of B are 7.4 GB (f32, bench) and
+// 0.95 GB (f64, TTM), 2.2 and 0.28 ms at 3.35 TB/s.
 //
-// Each thread holds an RM x CN register tile (rows ty + 16 r, columns
-// tx + 16 c) of T and of K, so one shared-memory load feeds RM or CN FMAs;
-// RM = ceil(nocc / 16) is a template parameter (one instantiation per
-// value up to 16, so nocc <= 256) and the b and j loops stop at the last
-// real index.  Plain FMAs, no tensor cores (wgmma/TMA are later work);
-// the shared-memory loads of the z and B_oo values still bound the inner
-// loops at small RM (times in PERF.md).
+// Design: two GEMMs on the tile core of `gemm_tile.cuh` through a T buffer
+// in device memory, one aux chunk at a time (the wrapper sizes the chunk
+// from a byte budget and allocates T):
+//   - stage A, the half-transform: M = nz*nocc (the trial vectors are
+//     folded into M, so each B_vv[P] tile is read once per M tile, not once
+//     per vector), N = K = nvir, one output per P.  A is z transposed by the
+//     wrapper ([b][x*nocc + j]), B is B_vv read along its rows (n-major in
+//     shared memory), both in 16-byte runs: k starts at the aligned column
+//     v0 - shift of B and z's first shift rows are zero.  The epilogue
+//     writes T in the [P, j, x*nvir + a] layout (rows padded to 16 bytes)
+//     that stage B reads;
+//   - stage B: M = nocc, N = nz*nvir, K = (P, j) over the chunk, so B_oo is
+//     read once per N tile; split-K with atomics into the zeroed K fills the
+//     card when M*N is small (TTM: 137 x 450);
+//   - t[x, P], 2*nz*naux*nocc*nvir flops: a reduction kernel in which a
+//     block owns 4 aux indices and 8 vectors.
+// The T round trip costs 2*chunk*nocc*nz*nvir elements per chunk (~24 GB
+// and ~7 ms in f32 at the bench shape, against its 88 ms flop bound).
+// Where B's strides rule out 16-byte runs (f32 with nmo not a multiple of
+// 4, as TTM/STO-3G's 182), its copies go one element at a time.
 //
 // Layout: B is any strided (naux, nmo, nmo) view (strides sP, sp, sq in
-// elements); z is contiguous (nz, nocc, nvir); t (nz, naux) is written,
-// K (nz, nocc, nvir) is accumulated (the caller zeroes it).  Launches on
-// the caller's stream, allocates nothing, returns cudaGetLastError().
+// elements); z is contiguous (nz, nocc, nvir) and zT its transpose as
+// above (ld columns, shift leading zero rows); t (nz, naux) is written;
+// K (nz, nocc, nvir) is accumulated (the caller zeroes it); Tb holds
+// chunk*nocc rows of np elements.  Launches on the caller's stream,
+// allocates nothing, returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int TX = 16;      // column groups: a thread owns columns a0 + tx + TX*c
-constexpr int TY = 16;      // row groups: a thread owns rows ty + TY*r
-constexpr int NTHREADS = TX * TY;
-constexpr int BK = 32;      // contraction chunk over b in the T phase
-constexpr int JK = 32;      // contraction chunk over j in the K phase
-constexpr int RM_MAX = 16;  // rows per thread: nocc <= TY * RM_MAX
+// ---- t[x, P] ---------------------------------------------------------------
 
-// columns per thread: 4 in f32; 3 in f64, whose values take two registers
-// (one 48-wide tile then covers the 45-46 virtuals of TTM/STO-3G)
-template <typename T> struct Cols { static constexpr int value = 4; };
-template <> struct Cols<double> { static constexpr int value = 3; };
+constexpr int T_NT = 256, T_PB = 4, T_XG = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(T_NT)
+coulomb_t_kernel(const T* __restrict__ B, int64_t sP, int64_t sp, int64_t sq, int naux,
+                 const T* __restrict__ z, int nz, int nocc, int nvir, int o0, int v0,
+                 T* __restrict__ t) {
+  const int P0 = blockIdx.x * T_PB, x0 = blockIdx.y * T_XG;
+  const int nov = nocc * nvir;
+  T s[T_PB][T_XG];
+#pragma unroll
+  for (int p = 0; p < T_PB; ++p)
+#pragma unroll
+    for (int x = 0; x < T_XG; ++x) s[p][x] = T(0);
+  for (int idx = threadIdx.x; idx < nov; idx += T_NT) {
+    const int j = idx / nvir;
+    const int64_t off = (int64_t)(o0 + j) * sp + (int64_t)(v0 + idx - j * nvir) * sq;
+    T bv[T_PB];
+#pragma unroll
+    for (int p = 0; p < T_PB; ++p) bv[p] = P0 + p < naux ? B[(int64_t)(P0 + p) * sP + off] : T(0);
+#pragma unroll
+    for (int x = 0; x < T_XG; ++x) {
+      const T zv = x0 + x < nz ? z[(int64_t)(x0 + x) * nov + idx] : T(0);
+#pragma unroll
+      for (int p = 0; p < T_PB; ++p) s[p][x] += bv[p] * zv;
+    }
+  }
+  __shared__ T red[T_PB * T_XG][T_NT / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int p = 0; p < T_PB; ++p)
+#pragma unroll
+    for (int x = 0; x < T_XG; ++x) {
+      T v = s[p][x];
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) red[p * T_XG + x][warp] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < T_PB * T_XG) {
+    const int p = threadIdx.x / T_XG, x = threadIdx.x % T_XG;
+    if (P0 + p < naux && x0 + x < nz) {
+      T tot = T(0);
+      for (int w = 0; w < T_NT / 32; ++w) tot += red[threadIdx.x][w];
+      t[(int64_t)(x0 + x) * naux + P0 + p] = tot;
+    }
+  }
+}
+
+// ---- the two GEMM stages -----------------------------------------------------
 
 template <typename T>
 struct Args {
@@ -58,200 +105,120 @@ struct Args {
   int64_t sP, sp, sq;
   int naux;
   const T* z;
+  const T* zT;  // z as [shift + b][m = x*nocc + j], ld columns, zero padded
+  int ldz, shift;
   int nz, nocc, nvir, o0, v0;
   T* t;
   T* K;
+  T* Tb;  // [q][j][n = x*nvir + a], row stride np
+  int np;
 };
 
-template <typename T, int RM>
-struct Tile {
-  static constexpr int CN = Cols<T>::value;
-  static constexpr int TN = TX * CN;  // virtual columns per block
-  static constexpr int MP = TY * RM;  // occupied rows, padded
-  static constexpr int LDT = TN + 1;  // row strides, padded against bank conflicts
-  static constexpr int LDZ = MP + 1;
-  static constexpr int LDB = TN + 1;
-  // Ts, then the larger of the T phase's (Zs, Bs) and the K phase's Os
-  static constexpr size_t SMEM_ELEMS =
-      (size_t)MP * LDT + (BK * (LDZ + LDB) > JK * MP ? BK * (LDZ + LDB) : JK * MP);
+// stage A: T[q, j, x, a] = sum_b z[x, j, b] B[P0+q, v0+a, v0+b], m = x*nocc + j.
+// k runs over the columns v0 - shift .. v0 + nvir of B, so that its rows'
+// 16-byte runs start aligned; zT's first shift rows are zero, so the
+// columns before v0 (finite values of the same tensor) add nothing.
+template <class Core>
+struct HalfTransform {
+  using T = typename Core::Elem;
+  static constexpr bool kReduce = false, kTransform = false;
+  int M, N, nkt, nq, extra;
+  Args<T> a;
+  int P0;
+  bool vecB;
+
+  __device__ void load(T* stage, int q, int kt, int m0, int n0) const {
+    const int k0 = kt * Core::BK, M_ = M, nvir = a.nvir, kend = a.shift + a.nvir;
+    const int ldz = a.ldz;
+    const T* zT = a.zT;
+    const T* Bq = a.B + (int64_t)(P0 + q) * a.sP + (int64_t)(a.v0 - a.shift) * a.sq;
+    const int64_t sp = a.sp, sq = a.sq;
+    const int v0 = a.v0;
+    Core::template copy<gt::KMAJOR, Core::BM, Core::LDA>(
+        stage, true, zT, [&](int r, int k, int w) -> gt::Run<T> {
+          const int m = m0 + r, kk = k0 + k;
+          return {zT + (int64_t)kk * ldz + m, kk < kend ? max(0, min(w, M_ - m)) : 0};
+        });
+    Core::template copy<gt::NMAJOR, Core::BN, Core::LDB>(
+        stage + Core::A_ELEMS, vecB, a.B, [&](int r, int k, int w) -> gt::Run<T> {
+          const int n = n0 + r, kk = k0 + k;
+          return {Bq + (int64_t)(v0 + n) * sp + (int64_t)kk * sq,
+                  n < nvir ? max(0, min(w, kend - kk)) : 0};
+        });
+  }
+
+  __device__ void store(int q, int m, int n, T v) const {
+    const int x = m / a.nocc, j = m - x * a.nocc;
+    a.Tb[((int64_t)q * a.nocc + j) * a.np + (int64_t)x * a.nvir + n] = v;
+  }
 };
 
-template <typename T, int RM>
-__global__ void __launch_bounds__(NTHREADS)
-df_exchange_kernel(const Args<T> g, int p_per_block, int ntile) {
-  using G = Tile<T, RM>;
-  constexpr int CN = G::CN, TN = G::TN, MP = G::MP;
-  constexpr int LDT = G::LDT, LDZ = G::LDZ, LDB = G::LDB;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ts = reinterpret_cast<T*>(smem_raw);  // [MP][LDT]  T tile of one P
-  T* U = Ts + MP * LDT;                    // phase-shared region:
-  T* Zs = U;                               //   T phase: [BK][LDZ] z chunk, transposed
-  T* Bs = Zs + BK * LDZ;                   //            [BK][LDB] B_vv chunk, transposed
-  T* Os = U;                               //   K phase: [JK][MP]  B_oo rows
-  __shared__ T red[NTHREADS / 32];
+// stage B: K[x, i, a] += sum_{q, j} B[P0+q, o0+j, o0+i] T[q, j, x, a], n = x*nvir + a
+template <class Core>
+struct ExchangeBack {
+  using T = typename Core::Elem;
+  static constexpr bool kReduce = true, kTransform = false;
+  int M, N, nkt, nq, extra;
+  Args<T> a;
+  int P0;
+  bool vecA;
 
-  const int nocc = g.nocc, nvir = g.nvir, o0 = g.o0, v0 = g.v0;
-  const int64_t sp = g.sp, sq = g.sq;
-  const int x = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int a0 = tile * TN;
-  const int P0 = blockIdx.z * p_per_block;
-  const int P1 = min(g.naux, P0 + p_per_block);
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const T* zx = g.z + (int64_t)x * nocc * nvir;
-
-  T kacc[RM][CN];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int c = 0; c < CN; ++c) kacc[r][c] = T(0);
-
-  for (int P = P0; P < P1; ++P) {
-    const T* BP = g.B + (int64_t)P * g.sP;
-
-    // Coulomb intermediate t[x, P], by the one block whose tile is P % ntile
-    if (tile == P % ntile) {
-      T s = T(0);
-      for (int idx = threadIdx.x; idx < nocc * nvir; idx += NTHREADS) {
-        const int j = idx / nvir;
-        const int b = idx - j * nvir;
-        s += BP[(int64_t)(o0 + j) * sp + (int64_t)(v0 + b) * sq] * zx[idx];
-      }
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) red[warp] = s;
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        T tot = T(0);
-        for (int w = 0; w < NTHREADS / 32; ++w) tot += red[w];
-        g.t[(int64_t)x * g.naux + P] = tot;
-      }
-      // red is rewritten only after the __syncthreads of the T phase below
-    }
-
-    // T[j, a] = sum_b z[x, j, b] B[P, v0+a, v0+b] for this block's a tile
-    T tacc[RM][CN];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < CN; ++c) tacc[r][c] = T(0);
-    for (int b0 = 0; b0 < nvir; b0 += BK) {
-      const int kn = min(BK, nvir - b0);
-      for (int idx = threadIdx.x; idx < MP * BK; idx += NTHREADS) {
-        const int j = idx / BK;
-        const int k = idx - j * BK;
-        Zs[k * LDZ + j] = (j < nocc && k < kn) ? zx[(int64_t)j * nvir + b0 + k] : T(0);
-      }
-      for (int idx = threadIdx.x; idx < TN * BK; idx += NTHREADS) {
-        const int aa = idx / BK;
-        const int k = idx - aa * BK;
-        const int a = a0 + aa;
-        Bs[k * LDB + aa] = (a < nvir && k < kn)
-                               ? BP[(int64_t)(v0 + a) * sp + (int64_t)(v0 + b0 + k) * sq]
-                               : T(0);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kn; ++k) {
-        T zr[RM], bc[CN];
-#pragma unroll
-        for (int r = 0; r < RM; ++r) zr[r] = Zs[k * LDZ + ty + TY * r];
-#pragma unroll
-        for (int c = 0; c < CN; ++c) bc[c] = Bs[k * LDB + tx + TX * c];
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int c = 0; c < CN; ++c) tacc[r][c] += zr[r] * bc[c];
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < CN; ++c) Ts[(ty + TY * r) * LDT + tx + TX * c] = tacc[r][c];
-
-    // K[i, a] += sum_j B[P, o0+j, o0+i] T[j, a]
-    for (int j0 = 0; j0 < nocc; j0 += JK) {
-      const int jn = min(JK, nocc - j0);
-      for (int idx = threadIdx.x; idx < jn * MP; idx += NTHREADS) {
-        const int jj = idx / MP;
-        const int i = idx - jj * MP;
-        Os[jj * MP + i] =
-            i < nocc ? BP[(int64_t)(o0 + j0 + jj) * sp + (int64_t)(o0 + i) * sq] : T(0);
-      }
-      __syncthreads();  // on the first chunk this also publishes Ts
-      for (int jj = 0; jj < jn; ++jj) {
-        T orow[RM], tv[CN];
-#pragma unroll
-        for (int r = 0; r < RM; ++r) orow[r] = Os[jj * MP + ty + TY * r];
-#pragma unroll
-        for (int c = 0; c < CN; ++c) tv[c] = Ts[(j0 + jj) * LDT + tx + TX * c];
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int c = 0; c < CN; ++c) kacc[r][c] += orow[r] * tv[c];
-      }
-      __syncthreads();
-    }
+  __device__ void load(T* stage, int q, int kt, int m0, int n0) const {
+    const int k0 = kt * Core::BK, nocc = a.nocc, o0 = a.o0, N_ = N, np = a.np;
+    const T* BP = a.B + (int64_t)(P0 + q) * a.sP;
+    const T* Tq = a.Tb + (int64_t)q * nocc * np;
+    const int64_t sp = a.sp, sq = a.sq;
+    Core::template copy<gt::KMAJOR, Core::BM, Core::LDA>(
+        stage, vecA, a.B, [&](int r, int k, int w) -> gt::Run<T> {
+          const int i = m0 + r, j = k0 + k;
+          return {BP + (int64_t)(o0 + j) * sp + (int64_t)(o0 + i) * sq,
+                  j < nocc ? max(0, min(w, nocc - i)) : 0};
+        });
+    Core::template copy<gt::KMAJOR, Core::BN, Core::LDB>(
+        stage + Core::A_ELEMS, true, a.Tb, [&](int r, int k, int w) -> gt::Run<T> {
+          const int n = n0 + r, j = k0 + k;
+          return {Tq + (int64_t)j * np + n, j < nocc ? max(0, min(w, N_ - n)) : 0};
+        });
   }
 
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int i = ty + TY * r;
-    if (i >= nocc) continue;
-#pragma unroll
-    for (int c = 0; c < CN; ++c) {
-      const int a = a0 + tx + TX * c;
-      if (a < nvir) atomicAdd(&g.K[((int64_t)x * nocc + i) * nvir + a], kacc[r][c]);
-    }
+  __device__ void store(int, int m, int n, T v) const {
+    const int x = n / a.nvir, c = n - x * a.nvir;
+    atomicAdd(&a.K[((int64_t)x * a.nocc + m) * a.nvir + c], v);
   }
-}
-
-template <typename T, int RM>
-cudaError_t launch_rm(const Args<T>& args, cudaStream_t stream) {
-  using G = Tile<T, RM>;
-  const int ntile = (args.nvir + G::TN - 1) / G::TN;
-  const size_t smem = sizeof(T) * G::SMEM_ELEMS;
-  const auto kern = df_exchange_kernel<T, RM>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, nsm = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NTHREADS, smem);
-  if (err != cudaSuccess) return err;
-  // split the aux range so that about two waves of blocks fill the card
-  const int64_t base = (int64_t)args.nz * ntile;
-  const int64_t target = 2 * (int64_t)std::max(per_sm, 1) * nsm;
-  int nsplit = (int)std::min<int64_t>(args.naux, std::max<int64_t>(1, (target + base - 1) / base));
-  const int p_per_block = (args.naux + nsplit - 1) / nsplit;
-  nsplit = (args.naux + p_per_block - 1) / p_per_block;
-  dim3 grid(args.nz, ntile, nsplit);
-  kern<<<grid, NTHREADS, smem, stream>>>(args, p_per_block, ntile);
-  return cudaGetLastError();
-}
-
-// launch_rm<T, rm> for the runtime rm in [R, RM_MAX]
-template <typename T, int R = 1>
-cudaError_t dispatch(int rm, const Args<T>& args, cudaStream_t stream) {
-  if constexpr (R > RM_MAX) {
-    return cudaErrorInvalidValue;  // nocc > 256: the wrapper refuses it first
-  } else {
-    if (rm == R) return launch_rm<T, R>(args, stream);
-    return dispatch<T, R + 1>(rm, args, stream);
-  }
-}
+};
 
 template <typename T>
-int launch(const T* B, long long sP, long long sp, long long sq, int naux,
-           const T* z, int nz, int nocc, int nvir, int o0, int v0, T* t, T* K,
-           void* stream) {
-  if (nz <= 0 || nocc <= 0 || nvir <= 0 || naux <= 0) return (int)cudaErrorInvalidValue;
-  const Args<T> args{B, sP, sp, sq, naux, z, nz, nocc, nvir, o0, v0, t, K};
-  return (int)dispatch<T>((nocc + TY - 1) / TY, args, reinterpret_cast<cudaStream_t>(stream));
+int launch(const Args<T>& g, int chunk, void* stream_ptr) {
+  constexpr int V = 16 / sizeof(T);
+  if (g.nz <= 0 || g.nocc <= 0 || g.nvir <= 0 || g.naux <= 0 || chunk <= 0 ||
+      g.shift < 0 || g.shift > g.v0 || g.ldz % V != 0 || g.np % V != 0 ||
+      g.ldz < g.nz * g.nocc || g.np < g.nz * g.nvir ||
+      !gt::aligned16(g.zT, {}) || !gt::aligned16(g.Tb, {}))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  const dim3 tgrid((g.naux + T_PB - 1) / T_PB, (g.nz + T_XG - 1) / T_XG);
+  coulomb_t_kernel<T><<<tgrid, T_NT, 0, stream>>>(g.B, g.sP, g.sp, g.sq, g.naux, g.z, g.nz,
+                                                  g.nocc, g.nvir, g.o0, g.v0, g.t);
+  cudaError_t err = cudaGetLastError();
+  using CoreA = gt::Core<T, 16, 1, 3, gt::NMAJOR>;
+  using CoreB = gt::Core<T, 16, 1, 3, gt::KMAJOR>;
+  // 16-byte runs along a row of B: k contiguous, rows and aux slices
+  // aligned, and the first column v0 - shift on a run boundary
+  const bool vec_vv = g.sq == 1 && (g.v0 - g.shift) % V == 0 &&
+                      gt::aligned16(g.B, {g.sp, g.sP});
+  // along a column of B_oo: i contiguous
+  const bool vec_oo = g.sq == 1 && g.o0 % V == 0 && gt::aligned16(g.B, {g.sp, g.sP});
+  const int kv = (g.shift + g.nvir + CoreA::BK - 1) / CoreA::BK;
+  const int ko = (g.nocc + CoreB::BK - 1) / CoreB::BK;
+  for (int P0 = 0; P0 < g.naux && err == cudaSuccess; P0 += chunk) {
+    const int nq = std::min(chunk, g.naux - P0);
+    const HalfTransform<CoreA> pa{g.nz * g.nocc, g.nvir, kv, nq, 0, g, P0, vec_vv};
+    err = gt::launch<CoreA>(pa, stream);
+    if (err != cudaSuccess) break;
+    const ExchangeBack<CoreB> pb{g.nocc, g.nz * g.nvir, ko, nq, 0, g, P0, vec_oo};
+    err = gt::launch<CoreB>(pb, stream);
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -259,15 +226,21 @@ int launch(const T* B, long long sP, long long sp, long long sq, int naux,
 extern "C" {
 
 int df_exchange_f64(const double* B, long long sP, long long sp, long long sq, int naux,
-                    const double* z, int nz, int nocc, int nvir, int o0, int v0,
-                    double* t, double* K, void* stream) {
-  return launch<double>(B, sP, sp, sq, naux, z, nz, nocc, nvir, o0, v0, t, K, stream);
+                    const double* z, const double* zT, int ldz, int shift, int nz, int nocc,
+                    int nvir, int o0, int v0, double* t, double* K, double* Tb, int np,
+                    int chunk, void* stream) {
+  return launch<double>({B, sP, sp, sq, naux, z, zT, ldz, shift, nz, nocc, nvir, o0, v0, t, K,
+                         Tb, np},
+                        chunk, stream);
 }
 
 int df_exchange_f32(const float* B, long long sP, long long sp, long long sq, int naux,
-                    const float* z, int nz, int nocc, int nvir, int o0, int v0,
-                    float* t, float* K, void* stream) {
-  return launch<float>(B, sP, sp, sq, naux, z, nz, nocc, nvir, o0, v0, t, K, stream);
+                    const float* z, const float* zT, int ldz, int shift, int nz, int nocc,
+                    int nvir, int o0, int v0, float* t, float* K, float* Tb, int np, int chunk,
+                    void* stream) {
+  return launch<float>({B, sP, sp, sq, naux, z, zT, ldz, shift, nz, nocc, nvir, o0, v0, t, K,
+                        Tb, np},
+                       chunk, stream);
 }
 
 const char* xk_error_string(int code) {

@@ -1,141 +1,150 @@
 // K3 `grid_back`: back-projection of the weighted fxc response to (occ, vir).
 //
 // Replaces `xtddft_tpu/response/sigma_df.py` `xtda_sigma_df._fxc.back`
-// (:525-534), which computes on one grid chunk, with phi_c = phi[c, g, :]:
+// (:525-534), which computes over grid points g, with phi_c = phi[c, g, :]:
 //
-//   A[x, g, o]   = dwv[x, g] phi_0[g, o0+o] + sum_y dwg[x, y, g] phi_y[g, o0+o]
-//   C_y[x, g, o] = dwg[x, y, g] phi_0[g, o0+o]
-//   r[x, o, v]   = sum_g A[x,g,o] phi_0[g, v0+v] + sum_y sum_g C_y[x,g,o] phi_y[g, v0+v]
+//   F_0[x, g, o] = dwv[x, g] phi_0[g, o0+o] + sum_y dwg[x, y, g] phi_y[g, o0+o]
+//   F_y[x, g, o] = dwg[x, y, g] phi_0[g, o0+o]                       (y = 1..3)
+//   r[x, o, v]   = sum_c sum_g F_c[x, g, o] phi_c[g, v0+v]
 //
-// What bounds it on an H100: flops (2*4*nocc*nvir per vector and point).
-// The JAX code materializes tmp[x, g, o] and tmp2[x, y, g, o] in HBM; here
-// the combined factors A and C_y of each 16-point grid tile are formed in
-// shared memory and consumed at once.  One block owns (vector x, a 32 x 32
-// (occ, vir) tile, a range of grid points) and keeps its tile of r in
-// registers; grid ranges are split across blocks only when there are too
-// few tiles to fill the card, and every block adds into ``out`` with
-// atomics, so the caller accumulates chunk after chunk in one tensor.
-// Simple first version: plain FMAs, no tensor cores; the factors are
-// rebuilt for every (occ, vir) tile, which is what costs it at nmo=1000
-// (times in PERF.md).
+// Bound on an H100: flops.  A GGA back-projection needs only
+// r = sum_g [phi_0[g, o], E] [G; phi_0[g, v]] per vector, with
+// E = sum_y dwg_y phi_y[g, o] and G = dwv phi_0[g, v] + sum_y dwg_y phi_y[g, v]:
+// about 4*nz*nocc*nvir per grid point (`response/flops.py`; 2.5e10 per
+// 4096-point chunk at the bench shape, 0.37 ms at 67 TFLOP/s; 1.06e9 at
+// TTM/STO-3G, 0.016 ms); the phi chunk (4*gc*nmo) is 0.02 ms of bytes at
+// the bench shape in f32.  The design below contracts over 4 components
+// (K = 4*npts, x-independent phi_v operand shared by every vector), twice
+// that minimum; the K = 2*npts form needs both operands per vector.
+//
+// Design: one GEMM on the tile core of `gemm_tile.cuh` with M = nz*nocc
+// (rows (x, o)), N = nvir and K = 4 components x the points of the span:
+// each pipeline stage holds, for BK points, the four phi_c[g, o] tiles of
+// the block's rows, the four phi_c[g, v] tiles of its columns and the
+// dwv/dwg values of the few vectors x its rows touch.  Once a stage has
+// landed the block rewrites the phi_o tiles in place into F_0..F_3 (7 FMAs
+// per row and point, against 4*BN FMAs of use), so F never reaches device
+// memory (it would be 4*nz*npts*nocc elements, GBs for one jvp group).
+// The sigma calls it once per jvp group and spin on the whole point span;
+// the point range is split across blocks (atomics into ``out``) when the
+// (x, o) x v tiles alone cannot fill the card, as at TTM (nvir 45 is one
+// N tile, so F is built once per point).  phi is read in 16-byte runs
+// along the orbital index where its strides allow (rows padded per vector,
+// columns from an aligned start, see GridBack); else one element at a time.
 //
 // Layout: dwv (nz, gc) and dwg (nz, 3, gc) contiguous; phi any strided
 // (4, gc, nmo) view (strides sc, sg, sm); out (nz, nocc, nvir) contiguous,
 // accumulated.  Launches on the caller's stream, allocates nothing,
-// returns cudaGetLastError().
+// returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int TV = 32;     // virtual columns per block, one per lane
-constexpr int TO = 32;     // occupied rows per block
-constexpr int NWARP = 8;   // a thread owns rows warp + NWARP*r, r < TO/NWARP
-constexpr int RO = TO / NWARP;
-constexpr int GK = 16;     // grid points per shared-memory tile
+// Rows m = x * noccp + o (o < noccp; rows with o >= nocc are zero), so
+// that with noccp a multiple of the vector width a 16-byte run of rows
+// never crosses from one trial vector to the next; columns n = shift + v
+// start at the aligned column v0 - shift (columns n < shift are computed
+// and dropped).
+template <class Core>
+struct GridBack {
+  using T = typename Core::Elem;
+  static constexpr bool kReduce = true, kTransform = true;
+  static constexpr int BK = Core::BK;
+  int M, N, nkt, nq, extra;
+  const T* dwv;
+  const T* dwg;
+  const T* phi;
+  int64_t sc, sg, sm;
+  int gc, nz, nocc, noccp, nvir, o0, v0, shift;
+  int NX;  // vectors x one row tile can touch
+  bool vec;
+  T* out;
 
-template <typename T>
-__global__ void __launch_bounds__(NWARP * 32)
-grid_back_kernel(const T* __restrict__ dwv, const T* __restrict__ dwg,
-                 const T* __restrict__ phi, int64_t sc, int64_t sg, int64_t sm, int gc,
-                 int nocc, int nvir, int o0, int v0, int nvt, int g_per_block,
-                 T* __restrict__ out) {
-  __shared__ T Dw[4][GK];          // dwv, dwg_x, dwg_y, dwg_z of the tile
-  __shared__ T F[4][GK][TO];       // phi_c[g, o], then the factors A, C_x, C_y, C_z
-  __shared__ T Pv[4][GK][TV];      // phi_c[g, v]
-
-  const int x = blockIdx.x;
-  const int ot = (blockIdx.y / nvt) * TO;
-  const int vt = (blockIdx.y % nvt) * TV;
-  const int gbeg = blockIdx.z * g_per_block;
-  const int gend = min(gc, gbeg + g_per_block);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  T acc[RO];
+  // stage: A slices [c][k][m] (phi_c[g, o], rewritten into F_c), B slices
+  // [c][k][n] (phi_c[g, v]), then dw[(c * BK + k) * NX + xi]
+  __device__ void load(T* stage, int, int kt, int m0, int n0) const {
+    const int g0 = kt * BK, gc_ = gc, nz_ = nz, nocc_ = nocc, noccp_ = noccp, N_ = N;
+    const int64_t sg_ = sg, sm_ = sm;
+    const int oo = o0, va = v0 - shift;
 #pragma unroll
-  for (int r = 0; r < RO; ++r) acc[r] = T(0);
-
-  for (int gb = gbeg; gb < gend; gb += GK) {
-    for (int idx = threadIdx.x; idx < 4 * GK; idx += blockDim.x) {
-      const int q = idx / GK;
-      const int gg = idx - q * GK;
-      const int g = gb + gg;
-      T val = T(0);
-      if (g < gend)
-        val = q == 0 ? dwv[(int64_t)x * gc + g] : dwg[((int64_t)x * 3 + q - 1) * gc + g];
-      Dw[q][gg] = val;
+    for (int c = 0; c < 4; ++c) {
+      const T* pc = phi + c * sc;
+      Core::template copy<gt::KMAJOR, Core::BM, Core::LDA>(
+          stage + c * Core::A_SLICE, vec, phi, [&](int r, int k, int w) -> gt::Run<T> {
+            const int m = m0 + r, g = g0 + k;
+            const int x = m / noccp, o = m - x * noccp;
+            return {pc + (int64_t)g * sg_ + (int64_t)(oo + o) * sm_,
+                    g < gc_ && x < nz_ ? max(0, min(w, nocc_ - o)) : 0};
+          });
+      Core::template copy<gt::KMAJOR, Core::BN, Core::LDB>(
+          stage + Core::A_ELEMS + c * Core::B_SLICE, vec, phi,
+          [&](int r, int k, int w) -> gt::Run<T> {
+            const int n = n0 + r, g = g0 + k;
+            return {pc + (int64_t)g * sg_ + (int64_t)(va + n) * sm_,
+                    g < gc_ ? max(0, min(w, N_ - n)) : 0};
+          });
     }
-    for (int idx = threadIdx.x; idx < 4 * GK * TO; idx += blockDim.x) {
-      const int c = idx / (GK * TO);
-      const int rem = idx - c * (GK * TO);
-      const int gg = rem / TO;
-      const int k = rem - gg * TO;
-      const int g = gb + gg;
-      const int o = ot + k;
-      const int v = vt + k;
-      const int64_t rowoff = (int64_t)c * sc + (int64_t)g * sg;
-      F[c][gg][k] = (g < gend && o < nocc) ? phi[rowoff + (int64_t)(o0 + o) * sm] : T(0);
-      Pv[c][gg][k] = (g < gend && v < nvir) ? phi[rowoff + (int64_t)(v0 + v) * sm] : T(0);
+    T* dw = stage + Core::AB_ELEMS;
+    const int x0 = m0 / noccp_;
+    for (int i = threadIdx.x; i < 4 * BK * NX; i += Core::NT) {
+      const int k = i % BK, rest = i / BK;
+      const int c = rest % 4, xi = rest / 4;
+      const int x = x0 + xi, g = g0 + k;
+      const bool ok = x < nz_ && g < gc_;
+      const T* src = c == 0 ? dwv + (int64_t)x * gc_ + g : dwg + ((int64_t)x * 3 + c - 1) * gc_ + g;
+      gt::cp_async_elem(dw + (c * BK + k) * NX + xi, ok ? src : dwv, ok);
     }
-    __syncthreads();
-    // combined factors, formed in place: each (g, o) entry by one thread
-    for (int idx = threadIdx.x; idx < GK * TO; idx += blockDim.x) {
-      const int gg = idx / TO;
-      const int k = idx - gg * TO;
-      const T p0 = F[0][gg][k];
-      const T p1 = F[1][gg][k];
-      const T p2 = F[2][gg][k];
-      const T p3 = F[3][gg][k];
-      F[0][gg][k] = Dw[0][gg] * p0 + Dw[1][gg] * p1 + Dw[2][gg] * p2 + Dw[3][gg] * p3;
-      F[1][gg][k] = Dw[1][gg] * p0;
-      F[2][gg][k] = Dw[2][gg] * p0;
-      F[3][gg][k] = Dw[3][gg] * p0;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int gg = 0; gg < GK; ++gg) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const T pv = Pv[c][gg][lane];
-#pragma unroll
-        for (int r = 0; r < RO; ++r) acc[r] += F[c][gg][warp + NWARP * r] * pv;
-      }
-    }
-    __syncthreads();
   }
 
-  const int v = vt + lane;
-  if (v < nvir) {
-#pragma unroll
-    for (int r = 0; r < RO; ++r) {
-      const int o = ot + warp + NWARP * r;
-      if (o < nocc) atomicAdd(&out[((int64_t)x * nocc + o) * nvir + v], acc[r]);
+  __device__ void transform(T* stage, int, int, int m0) const {
+    const T* dw = stage + Core::AB_ELEMS;
+    const int x0 = m0 / noccp;
+    for (int i = threadIdx.x; i < BK * Core::BM; i += Core::NT) {
+      const int k = i / Core::BM, r = i - k * Core::BM;
+      const int m = m0 + r;
+      if (m >= M) continue;  // zero-filled rows stay zero
+      const int xi = m / noccp - x0;
+      T* f = stage + k * Core::LDA + r;
+      constexpr int S = Core::A_SLICE;
+      const T p0 = f[0], p1 = f[S], p2 = f[2 * S], p3 = f[3 * S];
+      const T d0 = dw[k * NX + xi], d1 = dw[(BK + k) * NX + xi];
+      const T d2 = dw[(2 * BK + k) * NX + xi], d3 = dw[(3 * BK + k) * NX + xi];
+      f[0] = d0 * p0 + d1 * p1 + d2 * p2 + d3 * p3;
+      f[S] = d1 * p0;
+      f[2 * S] = d2 * p0;
+      f[3 * S] = d3 * p0;
+      // MGGA (not ported yet): F_y += 0.5 * dwt[x, g] * phi_y[g, o] adds the
+      // tau term of `sigma_df.py:531-533`; dwt would be a fifth dw row.
     }
   }
-}
+
+  __device__ void store(int, int m, int n, T v) const {
+    const int x = m / noccp, o = m - x * noccp;
+    if (o < nocc && n >= shift)
+      atomicAdd(&out[((int64_t)x * nocc + o) * nvir + n - shift], v);
+  }
+};
 
 template <typename T>
-int launch(const T* dwv, const T* dwg, const T* phi, long long sc, long long sg,
-           long long sm, int gc, int nz, int nocc, int nvir, int o0, int v0, T* out,
-           void* stream) {
+int launch(const T* dwv, const T* dwg, const T* phi, long long sc, long long sg, long long sm,
+           int gc, int nz, int nocc, int nvir, int o0, int v0, T* out, void* stream) {
   if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0) return (int)cudaErrorInvalidValue;
-  const int nvt = (nvir + TV - 1) / TV;
-  const int not_ = (nocc + TO - 1) / TO;
-  const int64_t tiles = (int64_t)nz * nvt * not_;
-  // split the grid range only when the (x, o, v) tiles alone leave SMs idle
-  int nsplit = (int)std::max<int64_t>(1, (1056 + tiles - 1) / tiles);
-  nsplit = std::min(nsplit, (gc + GK - 1) / GK);
-  int g_per_block = (gc + nsplit - 1) / nsplit;
-  g_per_block = (g_per_block + GK - 1) / GK * GK;
-  nsplit = (gc + g_per_block - 1) / g_per_block;
-  dim3 grid(nz, not_ * nvt, nsplit);
-  grid_back_kernel<T><<<grid, NWARP * 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      dwv, dwg, phi, sc, sg, sm, gc, nocc, nvir, o0, v0, nvt, g_per_block, out);
-  return (int)cudaGetLastError();
+  using Core = gt::Core<T, 8, 4, 3>;
+  constexpr int V = Core::VEC;
+  // 16-byte runs along the orbital index of phi
+  const bool vec = sm == 1 && o0 % V == 0 && gt::aligned16(phi, {sg, sc});
+  const int noccp = vec ? (nocc + V - 1) / V * V : nocc;
+  const int shift = vec ? v0 % V : 0;
+  const int nx = std::min(nz, (Core::BM - 1) / noccp + 2);
+  const int extra = (4 * Core::BK * nx + V - 1) / V * V;  // keeps each stage 16-byte aligned
+  const GridBack<Core> p{nz * noccp, shift + nvir, (gc + Core::BK - 1) / Core::BK, 1, extra,
+                         dwv, dwg, phi, sc, sg, sm, gc, nz, nocc, noccp, nvir, o0, v0, shift,
+                         nx, vec, out};
+  return (int)gt::launch<Core>(p, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -10,7 +10,9 @@
 //
 // masked to zero where the ground-state density is negligible.
 //
-// What bounds it on an H100: flops (2*4*nocc*nvir per vector and point)
+// What bounds it on an H100: flops, at least 2*2*nocc*nvir per vector and
+// point (`response/flops.py`: tmp = z phi_0[g, v] and u = z^T phi_0[g, o]
+// give every gradient term; this kernel forms all four s_c, twice that),
 // and the reads of phi (4 x gc x nmo per vector).  The JAX code
 // materializes tmp[x, g, o] and tmp2[x, y, g, o] in HBM; here s_c stays in
 // registers.  One block owns (vector x, 32 grid points, 32 occupied rows):

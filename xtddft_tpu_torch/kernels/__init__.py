@@ -1,14 +1,15 @@
 """Hand-written CUDA kernels of the main path, each beside its plain version.
 
-| kernel        | replaces (JAX package)                      | module          |
-|---------------|---------------------------------------------|-----------------|
-| `df_exchange` | `response/sigma_df.py:399` `_jk`            | `df_exchange`   |
-| `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1`      | `grid_rho1`     |
-| `grid_back`   | `response/sigma_df.py:525` `_fxc.back`      | `grid_back`     |
+| kernel        | replaces (JAX package)                 | module        | design                                        |
+|---------------|----------------------------------------|---------------|-----------------------------------------------|
+| `df_exchange` | `response/sigma_df.py:399` `_jk`       | `df_exchange` | two GEMMs on the tile core (`csrc/gemm_tile.cuh`) through an aux-chunked T buffer, plus a t reduction |
+| `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1` | `grid_rho1`   | one block per (vector, grid tile), tmp in registers |
+| `grid_back`   | `response/sigma_df.py:525` `_fxc.back` | `grid_back`   | one GEMM on the tile core, F formed in shared memory, one launch per jvp group and spin |
 
-Every wrapper runs its plain torch version on CPU tensors, launches its
-kernel on CUDA tensors (or raises), and counts its launches in the module's
-``launches`` integer.
+The tile core runs f64 on the DMMA tensor cores (`mma.sync` m16n8k8) and
+f32 as register-tiled FMA, with `cp.async` staging.  Every wrapper runs its
+plain torch version on CPU tensors, launches its kernel on CUDA tensors (or
+raises), and counts its launches in the module's ``launches`` integer.
 """
 
 from xtddft_tpu_torch.kernels import df_exchange, grid_back, grid_rho1

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``) through ctypes.
 
-Each kernel source compiles into its own shared library with a plain C
+Each kernel source (with the headers of ``csrc/``, such as the GEMM tile
+core ``gemm_tile.cuh``) compiles into its own shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), built
 at first use into the gitignored ``build/`` directory and rebuilt when the
 source changes.  Nothing here runs at import time: the CPU tests import the
@@ -39,7 +40,8 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
     ``<name>_f32`` and ``<name>_f64`` entry points with ``argtypes``."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = build_library(name, [CSRC / f"{name}.cu"], [_nvcc(), *NVCC_FLAGS])
+        path = build_library(name, [CSRC / f"{name}.cu"], [_nvcc(), *NVCC_FLAGS],
+                             headers=tuple(sorted(CSRC.glob("*.cuh"))))
         lib = ctypes.CDLL(str(path))
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{suffix}")

@@ -1,10 +1,14 @@
 """K1: density-fitted exchange of the X-TDA sigma for one spin block.
 
 Replaces `xtddft_tpu/response/sigma_df.py` `xtda_sigma_df._jk` (:399-433).
-The CUDA kernel (`csrc/df_exchange.cu`) keeps the half-transform T of each
-aux index on chip and is bound by flops (2*naux*nocc*nvir^2 per trial
-vector); see the source for its design.  A CPU tensor takes the plain
-torch version below; a CUDA tensor launches the kernel or raises.
+The CUDA source (`csrc/df_exchange.cu`) runs it as two GEMMs on the tile
+core of `csrc/gemm_tile.cuh` (f64 on the DMMA tensor cores, f32 as
+register-tiled FMA, `cp.async` staging) through a half-transform buffer T
+that this wrapper allocates once per call, one aux chunk at a time, plus a
+reduction kernel for the Coulomb intermediate t.  It is bound by flops,
+2*naux*nz*nocc*nvir*(nvir+nocc+1) (`response/flops.py`).  A CPU tensor
+takes the plain torch version below; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -17,23 +21,41 @@ NAME = "df_exchange"
 ROUTE = "cuda"
 SOURCE = "xtddft_tpu_torch/csrc/df_exchange.cu"
 REPLACES = "xtddft_tpu/response/sigma_df.py:399"
-MAX_NOCC = 256  # the kernel keeps ceil(nocc/16) <= 16 rows per thread in registers
+T_BUDGET_BYTES = 1 << 30  # the kernel's T buffer per call
 
 launches = 0
 
-_ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I, _cuda.P, _cuda.I, _cuda.I,
-         _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P]
+_ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I, _cuda.P, _cuda.P, _cuda.I, _cuda.I,
+         _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P, _cuda.I,
+         _cuda.I, _cuda.P]
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def plan_aux_chunk(naux: int, nz: int, nocc: int, nvir: int, itemsize: int,
+                   budget: int = T_BUDGET_BYTES) -> int:
+    """Aux indices per T chunk: the most whose T (chunk*nocc rows of nz*nvir
+    elements, padded to 16 bytes) fits ``budget`` bytes, evened out over the
+    chunks; at least 1.  The kernel walks [P0, P0 + chunk) for P0 = 0,
+    chunk, 2*chunk, ... below naux."""
+    per_aux = nocc * _round_up(nz * nvir, 16 // itemsize) * itemsize
+    most = max(1, min(naux, budget // per_aux))
+    nchunks = -(-naux // most)
+    return -(-naux // nchunks)
 
 
 def df_exchange_plain(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
                       chunk: int | None = None):
     """(t (nz, naux), K (nz, nocc, nvir)) by the einsums of the JAX code,
-    aux-chunked by ``chunk`` rows (default: all of naux)."""
+    aux-chunked by ``chunk`` rows (default: ``plan_aux_chunk``'s)."""
     naux = B.shape[0]
     nz, nocc, nvir = z.shape
     o = slice(o0, o0 + nocc)
     v = slice(v0, v0 + nvir)
-    chunk = naux if chunk is None else chunk
+    if chunk is None:
+        chunk = plan_aux_chunk(naux, nz, nocc, nvir, z.element_size())
     K = torch.zeros((nz, nocc, nvir), dtype=z.dtype, device=z.device)
     t = torch.empty((nz, naux), dtype=z.dtype, device=z.device)
     for p0 in range(0, naux, chunk):
@@ -49,9 +71,14 @@ def df_exchange(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     """t[x,P] = sum_jb B[P,o0+j,v0+b] z[x,j,b] and
     K[x,i,a] = sum_{P,j,b} B[P,o0+j,o0+i] B[P,v0+a,v0+b] z[x,j,b].
 
-    B: (naux, nmo, nmo), any strides; z: (nz, nocc, nvir).  ``chunk`` only
-    bounds the plain version's intermediate."""
+    B: (naux, nmo, nmo), any strides; z: (nz, nocc, nvir).  ``chunk``: aux
+    indices per T intermediate, for the kernel and the plain version alike
+    (default: ``plan_aux_chunk``'s, from ``T_BUDGET_BYTES``)."""
     global launches
+    if chunk is None:
+        chunk = plan_aux_chunk(B.shape[0], *z.shape, z.element_size())
+    if chunk < 1:
+        raise ValueError(f"{NAME}: aux chunk {chunk} < 1")
     if B.device.type == "cpu":
         return df_exchange_plain(B, z, o0, v0, chunk)
     _cuda.require_cuda(NAME, B, z)
@@ -60,14 +87,25 @@ def df_exchange(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     if nmo != nmo2 or o0 + nocc > nmo or v0 + nvir > nmo:
         raise ValueError(f"{NAME}: B {tuple(B.shape)} does not hold o0={o0}, "
                          f"v0={v0} and z {tuple(z.shape)}")
-    if nocc > MAX_NOCC:
-        raise ValueError(f"{NAME}: nocc={nocc} above the kernel's {MAX_NOCC}")
+    chunk = min(chunk, naux)
     z = z.contiguous()
     t = torch.empty((nz, naux), dtype=z.dtype, device=z.device)
     K = torch.zeros((nz, nocc, nvir), dtype=z.dtype, device=z.device)
+    # The half-transform reads B's rows from column v0 - shift, shift = v0
+    # mod the 16-byte run width (so that the runs start aligned where B's
+    # strides allow them); z goes in transposed, [shift + b][x*nocc + j],
+    # with zero rows before the first real b and rows padded to a run.
+    vec = 16 // z.element_size()
+    shift = v0 % vec
+    ldz = _round_up(nz * nocc, vec)
+    zT = torch.zeros((shift + nvir, ldz), dtype=z.dtype, device=z.device)
+    zT[shift:, :nz * nocc] = z.reshape(nz * nocc, nvir).T
+    npad = _round_up(nz * nvir, vec)
+    Tb = torch.empty(chunk * nocc * npad, dtype=z.dtype, device=z.device)
     lib, fn = _cuda.entry(NAME, _ARGS, B.dtype)
-    rc = fn(B.data_ptr(), *B.stride(), naux, z.data_ptr(), nz, nocc, nvir,
-            o0, v0, t.data_ptr(), K.data_ptr(), _cuda.stream())
+    rc = fn(B.data_ptr(), *B.stride(), naux, z.data_ptr(), zT.data_ptr(), ldz, shift,
+            nz, nocc, nvir, o0, v0, t.data_ptr(), K.data_ptr(), Tb.data_ptr(), npad,
+            chunk, _cuda.stream())
     _cuda.check(lib, NAME, rc)
     launches += 1
     return t, K

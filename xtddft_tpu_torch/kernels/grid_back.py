@@ -1,11 +1,14 @@
 """K3: back-projection of the weighted fxc response to (occ, vir).
 
 Replaces `xtddft_tpu/response/sigma_df.py` `xtda_sigma_df._fxc.back`
-(:525-534).  The CUDA kernel (`csrc/grid_back.cu`) forms the combined
-factors of each grid tile on chip and accumulates (occ, vir) in registers;
-it is bound by flops (2*4*nocc*nvir per vector and grid point); see the
-source for its design.  A CPU tensor takes the plain torch version below;
-a CUDA tensor launches the kernel or raises.
+(:525-534).  The CUDA source (`csrc/grid_back.cu`) runs it as one GEMM on
+the tile core of `csrc/gemm_tile.cuh` with M = nz*nocc, N = nvir and
+K = 4 components x the points, forming the combined factors F in shared
+memory as each tile of phi lands; the sigma calls it once per jvp group and
+spin, on the group's whole point span.  It is bound by flops, at least
+4*nz*nocc*nvir per grid point (`response/flops.py`); contracting over 4
+components, it does twice that.  A CPU tensor takes
+the plain torch version below; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ def grid_back(dwv: torch.Tensor, dwg: torch.Tensor, phi: torch.Tensor,
     + sum_g sum_y dwg_y phi0_o phiy_v, with phi_o = phi[:, :, o0+o] and
     phi_v = phi[:, :, v0+v]; returns out.
 
-    dwv: (nz, gc); dwg: (nz, 3, gc); phi: (4, gc, nmo) chunk, any strides;
-    out: (nz, nocc, nvir) contiguous accumulator."""
+    dwv: (nz, gc); dwg: (nz, 3, gc); phi: (4, gc, nmo) span of gc grid
+    points, any strides; out: (nz, nocc, nvir) contiguous accumulator."""
     global launches
     if phi.device.type == "cpu":
         return grid_back_plain(dwv, dwg, phi, o0, v0, out)

@@ -2,8 +2,9 @@
 
 Replaces `xtddft_tpu/response/sigma_df.py` `xtda_sigma_df._fxc.rho1`
 (:495-508).  The CUDA kernel (`csrc/grid_rho1.cu`) keeps the intermediate
-tmp[x, g, o] in registers and is bound by flops (2*4*nocc*nvir per vector
-and grid point); see the source for its design.  A CPU tensor takes the
+tmp[x, g, o] in registers and is bound by flops (at least 2*2*nocc*nvir
+per vector and grid point, `response/flops.py`; it does twice that); see
+the source for its design.  A CPU tensor takes the
 plain torch version below; a CUDA tensor launches the kernel or raises.
 """
 

@@ -1,0 +1,90 @@
+"""Operation and byte counts of the sigma build and of its kernels.
+
+``matvec_flops`` counts one blocked DF X-TDA sigma build the way the
+repository's benchmark does (the port keeps its own copy).  The per-kernel
+counts give each kernel's bound on the card: the larger of its operations
+over the peak rate for its type and its bytes over the memory rate, with
+every input read once and every output written once.
+"""
+
+from __future__ import annotations
+
+# NVIDIA H100 SXM at its 700 W limit (data sheet, dense, no sparsity)
+PEAK_FLOPS = {"float64": 67e12,  # f64 on the tensor cores (DMMA)
+              "float32": 67e12}  # f32 FMA (TF32 stays off)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def matvec_flops(nc, no, nv, naux, ngrid, nb, hyb_terms=1):
+    """Analytic flop count of one blocked DF X-TDA sigma build (nb vectors).
+
+    Counted per einsum of the DF sigma (2 flops per multiply-add).  The
+    dominant term is the exchange half-transform
+    T[x,P,j,a] = B[P,ab] z[x,jb]: 2*naux*nocc*nvir^2*nb per spin block.
+    hyb_terms: 1, +1 more if an RSH long-range B adds a second K pass.
+    """
+    na_o, na_v = nc + no, nv          # alpha occ/vir
+    nb_o, nb_v = nc, no + nv          # beta occ/vir
+    jk = 0.0
+    for o, v in ((na_o, na_v), (nb_o, nb_v)):
+        t = 2.0 * naux * o * v * nb            # t_P = B_ov . z
+        T = 2.0 * naux * o * v * v * nb        # T = B_vv . z
+        K = 2.0 * naux * o * o * v * nb        # K = B_oo . T
+        back = 2.0 * naux * o * v * nb         # v1 += B_ov . t
+        jk += t + back + hyb_terms * (T + K)
+    fxc = 0.0
+    for o, v in ((na_o, na_v), (nb_o, nb_v)):
+        # rho1 forward (4 gradient components) + backward, each
+        # ~2*ngrid*o*v*nb per component
+        fxc += 2.0 * 8.0 * ngrid * o * v * nb
+    return jk + fxc
+
+
+def df_exchange_flops(naux, nz, nocc, nvir):
+    """K1: t (2*naux*nz*nocc*nvir), T (... * nvir) and K (... * nocc)."""
+    return 2.0 * naux * nz * nocc * nvir * (nvir + nocc + 1)
+
+
+def df_exchange_bytes(naux, nz, nocc, nvir, itemsize):
+    """K1: the oo, ov and vv blocks of B and z read; t and K written."""
+    reads = naux * (nocc * nocc + nocc * nvir + nvir * nvir) + nz * nocc * nvir
+    writes = nz * naux + nz * nocc * nvir
+    return float(itemsize) * (reads + writes)
+
+
+def grid_back_flops(nz, nocc, nvir, npts):
+    """K3, the least a GGA back-projection needs: per vector and point,
+    r += [phi0_o, E] [G; phi0_v] with E = sum_y dwg_y phiy_o and
+    G = dwv phi0_v + sum_y dwg_y phiy_v, i.e. 4*nocc*nvir + 6*nocc + 8*nvir.
+    (The kernel contracts over 4 components, twice the leading term; the
+    MGGA tau term, not ported, would need that.)"""
+    return 2.0 * nz * npts * (2 * nocc * nvir + 3 * nocc + 4 * nvir)
+
+
+def grid_back_bytes(nz, nocc, nvir, npts, itemsize):
+    """K3: phi_c[g, o] and phi_c[g, v], dwv and dwg read; out read and
+    written once (it accumulates)."""
+    reads = 4 * npts * (nocc + nvir) + 4 * nz * npts + nz * nocc * nvir
+    return float(itemsize) * (reads + nz * nocc * nvir)
+
+
+def grid_rho1_flops(nz, nocc, nvir, npts):
+    """K2, the least a GGA transition density needs: per vector and point,
+    tmp = z . phi0_v and u = z^T . phi0_o (4*nocc*nvir), rho1 = phi0_o . tmp
+    (2*nocc) and grad_y rho1 = phiy_o . tmp + phiy_v . u (6*(nocc + nvir)).
+    (The kernel contracts z with all four phi_c[g, v], twice the leading
+    term.)"""
+    return 2.0 * nz * npts * (2 * nocc * nvir + 4 * nocc + 3 * nvir)
+
+
+def grid_rho1_bytes(nz, nocc, nvir, npts, itemsize):
+    """K2: phi_c[g, o], phi_c[g, v], z and the mask read; (nz, 4, g) written."""
+    reads = 4 * npts * (nocc + nvir) + nz * nocc * nvir + npts
+    return float(itemsize) * (reads + 4 * nz * npts)
+
+
+def bound_ms(flops, nbytes, dtype_name):
+    """(least time in ms, "operations" or "bytes") on the card."""
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")

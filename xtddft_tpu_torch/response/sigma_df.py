@@ -32,8 +32,7 @@ from xtddft_tpu_torch.xc import interface as xci
 from xtddft_tpu_torch.xc import registry as xc_registry
 from xtddft_tpu_torch.xc.registry import XCSpec
 
-AUX_BUDGET = 1.5e8  # elements of the plain exchange's T intermediate per chunk
-GRID_CHUNK = 4096  # grid points per K2/K3 launch
+GRID_CHUNK = 4096  # grid points per K2 launch (K3: one launch per jvp group)
 JVP_POINTS = 1 << 20  # (trial vectors x grid points) per fxc jvp call
 
 
@@ -70,16 +69,6 @@ class DFData:
     @property
     def nmo(self):
         return self.fock_mo.shape[-1]
-
-
-def _aux_chunk(naux, nz, nocc, nvir, budget=AUX_BUDGET):
-    """Largest divisor of naux keeping the plain exchange's T intermediate
-    (nz*chunk*nocc*nvir elements) under budget."""
-    target = int(max(1, budget // max(1, nz * nocc * nvir)))
-    for c in range(min(target, naux), 0, -1):
-        if naux % c == 0:
-            return c
-    return 1
 
 
 def _mo_transform(B_ao: torch.Tensor, mo: torch.Tensor) -> torch.Tensor:
@@ -335,7 +324,8 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         functional jvp per trial vector, back-projection to (o, v) (K3).
         The jvp is pointwise, so it runs over a group of chunks at once:
         each torch.func call dispatches hundreds of small operations,
-        whatever the number of points it covers."""
+        whatever the number of points it covers.  K3 takes the group's
+        whole point span in one launch per spin."""
         nz = za.shape[0]
         fxa = torch.zeros((nz, nocca, nvira), dtype=dt, device=dev)
         fxb = torch.zeros((nz, noccb, nvirb), dtype=dt, device=dev)
@@ -352,10 +342,8 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
             dwva, dwvb, dwga, dwgb = torch.func.vmap(
                 lambda d: respond(w_g, rho_g, d))(
                     (r1a[:, 0], r1b[:, 0], r1a[:, 1:4], r1b[:, 1:4]))
-            for i, s in enumerate(chunks):
-                k = slice(i * gc, (i + 1) * gc)
-                grid_back(dwva[:, k], dwga[..., k], phi_a[:, s], 0, nocca, fxa)
-                grid_back(dwvb[:, k], dwgb[..., k], phi_b[:, s], 0, noccb, fxb)
+            grid_back(dwva, dwga, phi_a[:, span], 0, nocca, fxa)
+            grid_back(dwvb, dwgb, phi_b[:, span], 0, noccb, fxb)
         return fxa, fxb
 
     def matvec(zs):
@@ -363,8 +351,8 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         nz = zs.shape[0]
         za = zs[:, :na].reshape(nz, nocca, nvira)
         zb = zs[:, na:].reshape(nz, noccb, nvirb)
-        ta, Ka = df_exchange(B, za, 0, nocca, _aux_chunk(naux, nz, nocca, nvira))
-        tb, Kb = df_exchange(Bb, zb, 0, noccb, _aux_chunk(naux, nz, noccb, nvirb))
+        ta, Ka = df_exchange(B, za, 0, nocca)
+        tb, Kb = df_exchange(Bb, zb, 0, noccb)
         t = ta + tb
         v1a = (t @ bov_a).reshape(nz, nocca, nvira) - hyb * Ka
         v1b = (t @ bov_b).reshape(nz, noccb, nvirb) - hyb * Kb

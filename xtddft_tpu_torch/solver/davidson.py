@@ -41,7 +41,9 @@ def davidson(matvec, hdiag, nroots: int = 5, init_guess=None,
 
     The block size is the number of rows of ``init_guess`` (default: unit
     vectors on the ``nroots`` lowest diagonal entries).  ``device``/``dtype``
-    default to those of one probe matvec; ``tol=None`` picks 1e-6 for f64
+    default to those of the operator, read from one probe matvec (the
+    operator computes on its own device, so None never picks the CPU by
+    itself); ``tol=None`` picks 1e-6 for f64
     and 3e-4 for f32.  Returns (e (nroots,), v (dim, nroots), conv
     (nroots,), info) with numpy arrays and info = {"cycles", "matvecs"}.
     """
