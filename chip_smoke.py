@@ -11,14 +11,25 @@ Phases (any failure raises; the script exits non-zero and prints no result):
 2. each kernel against its plain torch version at the main path's shapes
    (TTM/STO-3G and the nmo=1000 bench operator; K3 also on the span of one
    jvp group), f64 and f32, with median CUDA-event times of both and the
-   card's bound for the same work (``response/flops.py``); K1 also at its
-   edge cases (nocc above 256, nvir below one tile, one trial vector);
+   card's bound for the same work (``response/flops.py``) and, where one
+   PyTorch call computes the same function (the exchange-only and value-only
+   modes: a single einsum), that call's time as ``library_ms``; K1 also at its
+   edge cases (nocc above 256, nvir below one tile, one trial vector); then
+   the spin-flip modes (exchange-only K1, value-only and four-component K2
+   and K3 on overlapping o/v ranges, one case with the virtual side on a
+   second tensor and table) at the flip shapes of TTM and of the bench width;
 3. the main path: X-TDA on the TTM radical (182 AO, ROKS/B3LYP, density
    fitted) through ``XTDA(load_mf(...), backend="df").kernel()`` in f64,
    gated against ``tests/data/golden_ttm.json``; every kernel must have
    launched in this run;
 4. the bench-shape operator (nmo=1000, naux=2000, 49152 grid points, f32):
-   one 20-vector sigma build against the plain path, then a 20-root solve.
+   one 20-vector sigma build against the plain path, then a 20-root solve;
+5. the flip leg on the same TTM reference, f64: ``XSFTDA(ref, SA=0)`` and
+   ``SFTDA(ref, extype="up")``, 10 roots each, gated against
+   ``tests/data/golden_ttm_flip.json``; every kernel must have launched;
+6. the flip leg at the bench width, f32: one ``xsf_sigma_df(SA=3)`` build
+   against the plain path, seconds per build with the share of the
+   spin-adaptation terms, then a 10-root solve.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -52,7 +63,7 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 3) -> float:
     """Median of ``reps`` CUDA-event timed calls after one warm-up call."""
     fn()
     _sync()
@@ -110,32 +121,52 @@ K1_EDGES = (
 )
 
 
-def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None):
+# spin-flip shapes: (label, nz, naux, nmo, n_o, v0, n_v, grid points of one
+# span, second tensor and table on the virtual side); o = [0, n_o),
+# v = [v0, v0 + n_v)
+FLIP_SHAPES = (
+    ("ttm_down", 10, 4412, 182, 137, 136, 46, 187644, False),
+    ("ttm_up", 10, 4412, 182, 136, 137, 45, 187644, True),
+    ("bench_down", 10, 2000, 1000, 80, 78, 922, 49152, False),
+)
+
+
+def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=None):
     """Hold kern() against plain() (relative to max |plain|); time both
-    and add the bound when ``timed``."""
+    and add the bound when ``timed``.  ``library``: one PyTorch call that
+    computes the same function (a single multi-operand einsum), where there
+    is one: held against plain() and timed for ``library_ms``; the port
+    never calls it.  None where the function has two outputs or is a sum of
+    products."""
     got = kern()
     _sync()
     want = plain()
     _sync()
     rec["max_abs_err"], rec["rel_err"] = rel_err(got, want)
-    del got, want
+    del got
+    if library is not None:
+        rec["library_rel_err"] = rel_err(library(), want)[1]
+    del want
     if timed:
         from xtddft_tpu_torch.response.flops import bound_ms
 
         rec["ms"] = time_ms(kern)
         rec["plain_ms"] = time_ms(plain)  # the cuBLAS einsum route of the JAX code
         rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, rec["dtype"])
-        rec["library_ms"] = None  # no single PyTorch call computes the function
+        rec["library_ms"] = None if library is None else time_ms(library)
     _log("phase 2", json.dumps(rec))
     if not rec["rel_err"] <= rec["rtol"]:
         raise AssertionError(f"{rec['kernel']} disagrees with its plain version: {rec}")
+    if not rec.get("library_rel_err", 0.0) <= rec["rtol"]:
+        raise AssertionError(f"{rec['kernel']}: the library call computes another function: {rec}")
     checks.append(rec)
 
 
 def phase2() -> dict:
     """Each kernel against its plain version, f64 and f32, TTM and bench
     shapes, both spin blocks (times and bounds at the alpha block); K3 also
-    on the span of one jvp group; K1 at its edge cases."""
+    on the span of one jvp group; the spin-flip modes at the flip shapes;
+    K1 at its edge cases."""
     from xtddft_tpu_torch.kernels import df_exchange as k1
     from xtddft_tpu_torch.kernels import grid_back as k3
     from xtddft_tpu_torch.kernels import grid_rho1 as k2
@@ -191,6 +222,64 @@ def phase2() -> dict:
                            fl.grid_back_bytes(nz, no, nv, pts, isz))
             del B, phi_all, phi, phi_span
             torch.cuda.empty_cache()
+        for label, nz, naux, nmo, n_o, v0, n_v, npts, two in FLIP_SHAPES:
+            def sym_b():
+                G = torch.randn((naux, nmo, 8), generator=g, device="cuda", dtype=dtype)
+                return torch.bmm(G, G.transpose(1, 2)) / (naux * nmo * 8) ** 0.5
+
+            def table():
+                return torch.randn((4, npts, nmo), generator=g, device="cuda",
+                                   dtype=dtype) / nmo ** 0.5
+
+            B, Bv = sym_b(), (sym_b() if two else None)
+            z = torch.randn((nz, n_o, n_v), generator=g, device="cuda", dtype=dtype)
+            o, v = slice(0, n_o), slice(v0, v0 + n_v)
+
+            def rec(name, mode):
+                return {"kernel": name, "shape": label, "mode": mode, "dtype": dname, "nz": nz,
+                        "naux": naux, "nmo": nmo, "nocc": n_o, "v0": v0, "nvir": n_v,
+                        "two_tables": two, "rtol": tol}
+
+            _check(checks, rec(k1.NAME, "exchange_only"),
+                   lambda: k1.df_exchange(B, z, 0, v0, B_vir=Bv, with_t=False)[1],
+                   lambda: k1.df_exchange_plain(B, z, 0, v0, B_vir=Bv, with_t=False)[1],
+                   True, fl.df_exchange_flops(naux, nz, n_o, n_v, with_t=False),
+                   fl.df_exchange_bytes(naux, nz, n_o, n_v, isz, with_t=False),
+                   # operands in the order of the cheap pairwise path
+                   library=lambda: torch.einsum("Pab,xjb,Pji->xia",
+                                                (B if Bv is None else Bv)[:, v, v], z,
+                                                B[:, o, o]))
+            del B, Bv
+            phi, phi_v = table(), (table() if two else None)
+            wv = torch.randn((nz, 4, npts), generator=g, device="cuda", dtype=dtype)
+            dwv, dwg = wv[:, 0].contiguous(), wv[:, 1:4].contiguous()
+            del wv
+            out = torch.zeros((nz, n_o, n_v), device="cuda", dtype=dtype)
+            pv = phi if phi_v is None else phi_v
+            # the value-only modes are one three-operand einsum each
+            libs = {1: (lambda: torch.einsum("xov,gv,go->xg", z, pv[0][:, v],
+                                             phi[0][:, o])[:, None],
+                        lambda: torch.einsum("xg,go,gv->xov", dwv, phi[0][:, o], pv[0][:, v])),
+                    4: (None, None)}
+            for ncomp, mode in ((1, "value_only"), (4, "four_component")):
+                dg = dwg if ncomp == 4 else None
+                lib2, lib3 = libs[ncomp]
+                _check(checks, {**rec(k2.NAME, mode), "gc": npts},
+                       lambda: k2.grid_rho1(phi, z, 0, v0, None, phi_v=phi_v, ncomp=ncomp),
+                       lambda: k2.grid_rho1_plain(phi, z, 0, v0, None, phi_v=phi_v,
+                                                  ncomp=ncomp),
+                       True, fl.grid_rho1_flops(nz, n_o, n_v, npts, ncomp),
+                       fl.grid_rho1_bytes(nz, n_o, n_v, npts, isz, ncomp, masked=False),
+                       library=lib2)
+                _check(checks, {**rec(k3.NAME, mode), "gc": npts},
+                       lambda: k3.grid_back(dwv, dg, phi, 0, v0, out.zero_(),
+                                            phi_v=phi_v).clone(),
+                       lambda: k3.grid_back_plain(dwv, dg, phi, 0, v0, out.zero_(),
+                                                  phi_v=phi_v).clone(),
+                       True, fl.grid_back_flops(nz, n_o, n_v, npts, ncomp),
+                       fl.grid_back_bytes(nz, n_o, n_v, npts, isz, ncomp), library=lib3)
+            del phi, phi_v, pv, dwv, dwg, out, libs
+            torch.cuda.empty_cache()
         for label, nz, naux, nmo, no, nv in K1_EDGES:
             B = torch.randn((naux, nmo, nmo), generator=g, device="cuda", dtype=dtype)
             z = torch.randn((nz, no, nv), generator=g, device="cuda", dtype=dtype)
@@ -216,8 +305,9 @@ def _first_fxc_jvp():
     torch.func.vmap(lambda d: respond(r, (r, r, g, g), d))((r[None], r[None], g[None], g[None]))
 
 
-def phase3() -> dict:
-    """The main path: TTM X-TDA, f64, through the public entry point."""
+def phase3():
+    """The main path: TTM X-TDA, f64, through the public entry point.
+    Returns (record, the Reference) for the flip leg to reuse."""
     from xtddft_tpu_torch import kernels
     from xtddft_tpu_torch.methods.drivers import XTDA
     from xtddft_tpu_torch.response.reference_state import make_reference
@@ -273,14 +363,33 @@ def phase3() -> dict:
     idle = [k for k, n in launches.items() if n <= 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    return rec
+    return rec, ref
 
 
-def phase4() -> dict:
-    """Bench-shape synthetic operator, f32: sigma check and 20-root solve."""
+def _plain_matvec(op, z):
+    """op.matvec(z) with every kernel of the sigma swapped for its plain version."""
     from xtddft_tpu_torch.kernels import df_exchange as k1
     from xtddft_tpu_torch.kernels import grid_back as k3
     from xtddft_tpu_torch.kernels import grid_rho1 as k2
+    from xtddft_tpu_torch.response import sigma_df
+
+    swapped = {"df_exchange": k1.df_exchange_plain, "grid_rho1": k2.grid_rho1_plain,
+               "grid_back": k3.grid_back_plain}
+    saved = {n: getattr(sigma_df, n) for n in swapped}
+    try:
+        for n, f in swapped.items():
+            setattr(sigma_df, n, f)
+        want = op.matvec(z)
+        _sync()
+    finally:
+        for n, f in saved.items():
+            setattr(sigma_df, n, f)
+    return want
+
+
+def phase4():
+    """Bench-shape synthetic operator, f32: sigma check and 20-root solve.
+    Returns (record, the DFData) for the flip leg to reuse."""
     from xtddft_tpu_torch.response import sigma_df
     from xtddft_tpu_torch.response.flops import matvec_flops
     from xtddft_tpu_torch.solver.davidson import davidson
@@ -300,19 +409,7 @@ def phase4() -> dict:
     z = z / z.norm(dim=1, keepdim=True)
     got = op.matvec(z)
     _sync()
-    # the plain path: the same operator with each kernel's plain version
-    swapped = {"df_exchange": k1.df_exchange_plain, "grid_rho1": k2.grid_rho1_plain,
-               "grid_back": k3.grid_back_plain}
-    saved = {n: getattr(sigma_df, n) for n in swapped}
-    try:
-        for n, f in swapped.items():
-            setattr(sigma_df, n, f)
-        want = op.matvec(z)
-        _sync()
-    finally:
-        for n, f in saved.items():
-            setattr(sigma_df, n, f)
-    err, rel = rel_err(got, want)
+    err, rel = rel_err(got, _plain_matvec(op, z))
     _log("phase 4 sigma", json.dumps({"max_abs_err": err, "rel_err": rel,
                                       "rtol": F32_RTOL, "t_data_s": t_build}))
     if not rel <= F32_RTOL:
@@ -336,6 +433,120 @@ def phase4() -> dict:
     _log("phase 4 solve", json.dumps(rec))
     if not (conv.sum() == nroots and np.all(np.isfinite(e)) and np.all(np.diff(e) >= 0)):
         raise AssertionError(f"bench solve: {rec}")
+    return rec, data
+
+
+def phase5(ref) -> dict:
+    """The flip leg on the TTM reference of phase 3, f64, through the public
+    entry points: XSF-TDA (SA=0: TTM is a doublet) and SF-TDA flip-up."""
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.methods.drivers import SFTDA, XSFTDA
+
+    golden = json.loads((ROOT / "tests/data/golden_ttm_flip.json").read_text())
+    runs = (
+        ("xsf", lambda: XSFTDA(ref, nstates=10, SA=0, method=0, backend="df").kernel(),
+         golden["xsf_e_ev"], golden["xsf_ds2"]),
+        ("sfup", lambda: SFTDA(ref, nstates=10, extype="up", method=0, backend="df").kernel(),
+         golden["sfup_e_ev"], None),
+    )
+    rec = {}
+    for name, run, e_ref, ds2_ref in runs:
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        s = time.perf_counter()
+        res = run()
+        _sync()
+        wall = time.perf_counter() - s
+        launches = kernels.launch_counts()
+        # the golden has near-degenerate pairs: compare sorted energies, not vectors
+        order = np.argsort(res.e_eV)
+        dev = float(np.abs(res.e_eV[order] - np.sort(e_ref)).max())
+        r = {"solve_s": wall, "cycles": res.cycles, "nroots": len(res.e),
+             "converged": res.converged, "max_dev_ev": dev, "launches": launches,
+             "e_ev": res.e_eV.tolist(),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if ds2_ref is not None:
+            r["ds2"] = res.ds2.tolist()
+            r["max_dev_ds2"] = float(np.abs(
+                res.ds2[order] - np.asarray(ds2_ref)[np.argsort(e_ref)]).max())
+        _log(f"phase 5 {name}", json.dumps(r))
+        if not (res.converged and len(res.e) == 10):
+            raise AssertionError(f"TTM {name}: not 10/10 roots converged: {r}")
+        if not dev < TTM_GATE_EV:
+            raise AssertionError(f"TTM {name} deviates from golden_ttm_flip.json by {dev} eV")
+        if ds2_ref is not None and not r["max_dev_ds2"] < 1e-3:
+            raise AssertionError(f"TTM {name}: <dS^2> off by {r['max_dev_ds2']}")
+        idle = [k for k, n in launches.items() if n <= 0]
+        if idle:
+            raise AssertionError(f"kernels not launched on the {name} path: {idle}")
+        rec[name] = r
+    rec["launches"] = {k: rec["xsf"]["launches"][k] + rec["sfup"]["launches"][k]
+                       for k in rec["xsf"]["launches"]}
+    return rec
+
+
+def phase6(data) -> dict:
+    """The flip leg at the bench width, f32, on the DFData of phase 4:
+    ``xsf_sigma_df(SA=3, remove=True, method=0)`` against the plain path,
+    seconds per build and the spin-adaptation (dA) share, a 10-root solve."""
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.response import sigma_df, xsf_terms
+    from xtddft_tpu_torch.response.flops import sf_matvec_flops
+    from xtddft_tpu_torch.solver.davidson import davidson
+
+    nroots = 10
+    n_o, n_v = data.nc + data.no, data.no + data.nv
+    naux, ngrid = data.B.shape[0], data.grid_w.shape[0]
+    s = time.perf_counter()
+    xsf_terms.delta_a_tensors_from_df(data.B, data.nc, data.no, 3)
+    _sync()
+    t_da_tensors = time.perf_counter() - s
+    s = time.perf_counter()
+    op = sigma_df.xsf_sigma_df(data, SA=3, remove=True, method=0)
+    _sync()
+    t_op = time.perf_counter() - s
+    op_sa0 = sigma_df.xsf_sigma_df(data, SA=0, remove=True, method=0)
+
+    g = torch.Generator("cuda").manual_seed(6)
+    z = torch.randn((nroots, op.dim), generator=g, device="cuda", dtype=torch.float32)
+    z = z / z.norm(dim=1, keepdim=True)
+    kernels.reset_launch_counts()
+    got = op.matvec(z)
+    _sync()
+    launches = kernels.launch_counts()
+    err, rel = rel_err(got, _plain_matvec(op, z))
+    build_ms = time_ms(lambda: op.matvec(z))
+    build_sa0_ms = time_ms(lambda: op_sa0.matvec(z))
+    sig = {"max_abs_err": err, "rel_err": rel, "rtol": F32_RTOL, "dim": op.dim,
+           "launches_per_build": launches, "build_ms": build_ms,
+           "build_without_dA_ms": build_sa0_ms,
+           "dA_share": (build_ms - build_sa0_ms) / build_ms,
+           "dA_tensors_s": t_da_tensors, "operator_s": t_op}
+    _log("phase 6 sigma", json.dumps(sig))
+    if not rel <= F32_RTOL:
+        raise AssertionError(f"bench flip sigma: kernels vs plain rel {rel}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"bench flip sigma: kernels not launched: {launches}")
+    del op_sa0, got
+
+    x0 = op.init_guess(nroots)
+    nb = x0.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    s = time.perf_counter()
+    e, _, conv, info = davidson(op.matvec, op.hdiag, nroots=nroots, init_guess=x0,
+                                tol=1e-3, max_space_factor=8, pick_positive=False,
+                                device=op.device, dtype=op.dtype)
+    _sync()
+    wall = time.perf_counter() - s
+    cycles = info["cycles"]
+    flops = sf_matvec_flops(n_o, n_v, naux, ngrid, nb)
+    rec = {**sig, "wall_s": wall, "cycles": cycles, "nb": nb, "nconv": int(conv.sum()),
+           "nroots": nroots, "builds_per_s": cycles / wall,
+           "tflops": flops * cycles / wall / 1e12, "flops_per_build": flops,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "e": e.tolist()}
+    _log("phase 6 solve", json.dumps(rec))
+    if not (conv.sum() == nroots and np.all(np.isfinite(e)) and np.all(np.diff(e) >= 0)):
+        raise AssertionError(f"bench flip solve: {rec}")
     return rec
 
 
@@ -344,10 +555,16 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write every number to this JSON file")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     card = phase0()
     record = {"card": card, "builds_s": phase1(), "kernels": phase2()}
-    record["ttm"] = phase3()
-    record["bench"] = phase4()
+    record["ttm"], ref = phase3()
+    record["ttm_flip"] = phase5(ref)
+    del ref
+    torch.cuda.empty_cache()
+    record["bench"], data = phase4()
+    record["bench_flip"] = phase6(data)
+    del data
 
     from xtddft_tpu_torch import kernels
 
@@ -356,13 +573,23 @@ def main(argv=None) -> int:
         # the main path's own shape: TTM, f64, alpha block; K3 on a jvp group's span
         main_check = [c for c in record["kernels"]["checks"]
                       if c["kernel"] == m.NAME and c["shape"] == "ttm"
-                      and c["dtype"] == "float64" and c["spin"] == "a"][-1]
+                      and c["dtype"] == "float64" and c.get("spin") == "a"][-1]
+        # the flip mode that phase 5 runs (exchange-only, value-only), where
+        # one library call computes the function
+        flip_check = [c for c in record["kernels"]["checks"]
+                      if c["kernel"] == m.NAME and c["shape"] == "ttm_down"
+                      and c["dtype"] == "float64" and c.get("library_ms") is not None][-1]
         entries.append({
             "name": m.NAME, "route": m.ROUTE, "source": m.SOURCE, "replaces": m.REPLACES,
             "launches": record["ttm"]["launches"][m.NAME],
+            "launches_flip": record["ttm_flip"]["launches"][m.NAME],
             **{k: main_check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
+            **{f"flip_{k}": flip_check[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                    "library_ms")},
         })
+    record["total_s"] = time.perf_counter() - t_start
+    _log("total seconds", record["total_s"])
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(record, indent=1))

@@ -101,3 +101,32 @@ def test_bounds_at_the_issue_shapes():
     ms, by = flops.bound_ms(flops.grid_back_flops(20, 80, 920, 4096),
                             flops.grid_back_bytes(20, 80, 920, 4096, 4), "float32")
     assert by == "operations" and 0.365 < ms < 0.372
+
+
+# (n_o, n_v, naux, ngrid, nb): TTM flip-down, TTM flip-up, the bench width's flip-down
+FLIP_SHAPES = {"ttm_down": (137, 46, 4412, 187644, 11), "ttm_up": (136, 45, 4412, 187644, 10),
+               "bench_down": (80, 922, 2000, 49152, 10)}
+
+
+@pytest.mark.parametrize("shape", list(FLIP_SHAPES.values()), ids=list(FLIP_SHAPES))
+@pytest.mark.parametrize("kdim", [0, 1, 4])
+def test_flip_kernel_counts_add_up_to_the_flip_sigma_count(shape, kdim):
+    """Exchange-only K1 is the whole two-electron part of a flip build; the
+    value-only K2 and K3 are its ALDA0 grid part up to terms linear in
+    n_o; with four components their GGA minimum is half of what the
+    per-einsum count of the multicollinear kernel gives."""
+    n_o, n_v, naux, ngrid, nb = shape
+    k1 = flops.df_exchange_flops(naux, nb, n_o, n_v, with_t=False)
+    assert k1 == flops.sf_matvec_flops(n_o, n_v, naux, ngrid, nb, kdim=0)
+    grid = flops.sf_matvec_flops(n_o, n_v, naux, ngrid, nb, kdim=kdim) - k1
+    if kdim == 1:
+        k23 = (flops.grid_rho1_flops(nb, n_o, n_v, ngrid, ncomp=1)
+               + flops.grid_back_flops(nb, n_o, n_v, ngrid, ncomp=1))
+        assert k23 - 3.0 * nb * ngrid * n_o == pytest.approx(grid, rel=1e-12)
+    elif kdim == 4:
+        k23 = (flops.grid_rho1_flops(nb, n_o, n_v, ngrid) + flops.grid_back_flops(nb, n_o, n_v, ngrid))
+        assert k23 - 2.0 * nb * ngrid * 7 * (n_o + n_v) == pytest.approx(0.5 * grid, rel=1e-12)
+    else:
+        assert grid == 0.0
+    assert flops.df_exchange_bytes(naux, nb, n_o, n_v, 8, with_t=False) < flops.df_exchange_bytes(
+        naux, nb, n_o, n_v, 8)

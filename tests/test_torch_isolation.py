@@ -25,11 +25,14 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.grids",
     "xtddft_tpu_torch.xc.functionals",
     "xtddft_tpu_torch.xc.interface",
+    "xtddft_tpu_torch.xc.mcol",
     "xtddft_tpu_torch.scf.env",
     "xtddft_tpu_torch.scf.checkpoint",
     "xtddft_tpu_torch.response.reference_state",
     "xtddft_tpu_torch.response.sigma",
     "xtddft_tpu_torch.response.sigma_df",
+    "xtddft_tpu_torch.response.spaces",
+    "xtddft_tpu_torch.response.xsf_terms",
     "xtddft_tpu_torch.response.flops",
     "xtddft_tpu_torch.solver.davidson",
     "xtddft_tpu_torch.props.oscillator",

@@ -16,6 +16,10 @@ from xtddft_tpu_torch.kernels import df_exchange as k1
 from xtddft_tpu_torch.kernels import grid_back as k3
 from xtddft_tpu_torch.kernels import grid_rho1 as k2
 
+# the suite runs one worker process per core; torch's own intra-op threads
+# would only contend with them
+torch.set_num_threads(1)
+
 NAUX, NMO, GC, NZ = 64, 40, 256, 3
 NOCC = 11
 RTOL = 1e-12
@@ -119,6 +123,128 @@ def test_grid_back_span_equals_its_chunks():
     _rel_close(span, per.numpy(), RTOL)
 
 
+# ---- the spin-flip modes: overlapping o/v ranges, a second tensor or table ----
+
+N_O, V0 = 13, 9  # o = [0, 13), v = [9, 40): they share four orbitals
+N_V = NMO - V0
+
+
+def _flip_inputs(seed, two):
+    rng = np.random.default_rng(seed)
+    sym = lambda a: 0.5 * (a + a.transpose(0, 2, 1))
+    B = sym(rng.normal(size=(NAUX, NMO, NMO)))
+    Bv = sym(rng.normal(size=(NAUX, NMO, NMO))) if two else None
+    phi = rng.normal(size=(4, GC, NMO))
+    phi_v = rng.normal(size=(4, GC, NMO)) if two else None
+    z = rng.normal(size=(NZ, N_O, N_V))
+    return B, Bv, phi, phi_v, z, rng
+
+
+def _t(a):
+    return None if a is None else torch.as_tensor(a)
+
+
+@pytest.mark.parametrize("two", [False, True], ids=["one_tensor", "two_tensors"])
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_df_exchange_flip_plain_matches_dense(two, chunk):
+    """Exchange-only K1 against the dense (ij|ab) contraction as the JAX flip
+    sigmas write it (`sigma_df.py:829-830`: B_occ[P,i,j], B_vir[P,a,b])."""
+    B, Bv, *_, z, _ = _flip_inputs(4, two)
+    Bo = jnp.asarray(B)[:, :N_O, :N_O]
+    Bvv = jnp.asarray(B if Bv is None else Bv)[:, V0:, V0:]
+    want = jnp.einsum("Pij,Pab,xjb->xia", Bo, Bvv, jnp.asarray(z))
+    t, K = k1.df_exchange(_t(B), _t(z), 0, V0, chunk, B_vir=_t(Bv), with_t=False)
+    assert t is None
+    _rel_close(K, want, RTOL)
+
+
+def test_df_exchange_second_tensor_has_no_coulomb_term():
+    B, Bv, *_, z, _ = _flip_inputs(4, True)
+    with pytest.raises(ValueError, match="with_t=False"):
+        k1.df_exchange(_t(B), _t(z), 0, V0, B_vir=_t(Bv))
+
+
+@pytest.mark.parametrize("two", [False, True], ids=["one_table", "two_tables"])
+@pytest.mark.parametrize("ncomp", [1, 4])
+def test_grid_rho1_flip_plain_matches_dense(two, ncomp):
+    """rho1_c[x,g] = sum_ov z[x,o,v] d_c(po[g,o] pv[g,v]) written out densely."""
+    _, _, phi, phi_v, z, rng = _flip_inputs(5, two)
+    po = jnp.asarray(phi)[:, :, :N_O]
+    pv = jnp.asarray(phi if phi_v is None else phi_v)[:, :, V0:]
+    zj = jnp.asarray(z)
+    rows = [jnp.einsum("xov,go,gv->xg", zj, po[0], pv[0])]
+    for y in (1, 2, 3)[:ncomp - 1]:
+        rows.append(jnp.einsum("xov,go,gv->xg", zj, po[y], pv[0])
+                    + jnp.einsum("xov,go,gv->xg", zj, po[0], pv[y]))
+    want = np.stack([np.asarray(r) for r in rows], axis=1)
+    out = k2.grid_rho1(_t(phi), _t(z), 0, V0, None, phi_v=_t(phi_v), ncomp=ncomp)
+    _rel_close(out, want, RTOL)
+    mask = rng.uniform(size=GC) > 0.2
+    out = k2.grid_rho1(_t(phi), _t(z), 0, V0, torch.as_tensor(mask, dtype=torch.float64),
+                       phi_v=_t(phi_v), ncomp=ncomp)
+    _rel_close(out, want * mask, RTOL)
+
+
+@pytest.mark.parametrize("two", [False, True], ids=["one_table", "two_tables"])
+@pytest.mark.parametrize("ncomp", [1, 4])
+def test_grid_back_flip_plain_matches_dense(two, ncomp):
+    """v[x,o,v] = sum_g sum_c wv[x,c,g] d_c(po[g,o] pv[g,v]) written out densely."""
+    _, _, phi, phi_v, _, rng = _flip_inputs(6, two)
+    po = jnp.asarray(phi)[:, :, :N_O]
+    pv = jnp.asarray(phi if phi_v is None else phi_v)[:, :, V0:]
+    wv = rng.normal(size=(NZ, ncomp, GC))
+    want = jnp.einsum("xg,go,gv->xov", wv[:, 0], po[0], pv[0])
+    for y in (1, 2, 3)[:ncomp - 1]:
+        want = want + jnp.einsum("xg,go,gv->xov", wv[:, y], po[y], pv[0])
+        want = want + jnp.einsum("xg,go,gv->xov", wv[:, y], po[0], pv[y])
+    acc = torch.full((NZ, N_O, N_V), 0.25, dtype=torch.float64)
+    dwg = _t(np.ascontiguousarray(wv[:, 1:4])) if ncomp == 4 else None
+    out = k3.grid_back(_t(np.ascontiguousarray(wv[:, 0])), dwg, _t(phi), 0, V0, acc,
+                       phi_v=_t(phi_v))
+    assert out is acc
+    _rel_close(out - 0.25, want, RTOL)
+
+
+@pytest.mark.parametrize("case", ["k1", "k2-value", "k2-four", "k3-value", "k3-four"])
+def test_flip_plain_f32_close_to_f64(case):
+    """The plain versions are what the kernels are held against in f32 on the
+    card: in f32 they agree with their f64 selves to the f32 tolerance there."""
+    B, Bv, phi, phi_v, z, rng = _flip_inputs(8, True)
+    wv = rng.normal(size=(NZ, 4, GC))
+
+    def run(dt):
+        c = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dt)
+        if case == "k1":
+            return k1.df_exchange_plain(c(B), c(z), 0, V0, None, c(Bv), False)[1]
+        ncomp = 1 if case.endswith("value") else 4
+        if case.startswith("k2"):
+            return k2.grid_rho1_plain(c(phi), c(z), 0, V0, None, c(phi_v), ncomp)
+        out = torch.zeros((NZ, N_O, N_V), dtype=dt)
+        dwg = c(wv[:, 1:4]) if ncomp == 4 else None
+        return k3.grid_back_plain(c(wv[:, 0]), dwg, c(phi), 0, V0, out, c(phi_v))
+
+    got, want = run(torch.float32), run(torch.float64)
+    assert got.dtype == torch.float32
+    _rel_close(got.double(), want.numpy(), 1e-4)
+
+
+def test_grid_rho1_refuses_other_component_counts():
+    _, _, phi, _, z, _ = _flip_inputs(5, False)
+    with pytest.raises(ValueError, match="ncomp"):
+        k2.grid_rho1(_t(phi), _t(z), 0, V0, None, ncomp=3)
+
+
+@pytest.mark.parametrize("shape", [(10, 137, 46), (11, 136, 45), (21, 80, 922), (10, 80, 922)],
+                         ids=["ttm_down", "ttm_up", "bench_nz21", "bench_nz10"])
+def test_df_exchange_flip_chunk_fits_budget(shape):
+    """n_o > n_v at TTM: the planned T chunk stays within the 1 GiB budget."""
+    nz, n_o, n_v = shape
+    naux, isz = (4412, 8) if n_o > 100 else (2000, 4)
+    chunk = k1.plan_aux_chunk(naux, nz, n_o, n_v, isz)
+    assert 1 <= chunk <= naux
+    assert chunk * n_o * (-(-nz * n_v // (16 // isz)) * (16 // isz)) * isz <= k1.T_BUDGET_BYTES
+
+
 @pytest.mark.parametrize("naux", [1, 7, 257, 4412])
 @pytest.mark.parametrize("budget", [1, 10_000, 1 << 20, 1 << 30])
 def test_df_exchange_aux_plan_covers_naux(naux, budget):
@@ -135,3 +261,14 @@ def test_df_exchange_aux_plan_covers_naux(naux, budget):
     assert chunk == 1 or chunk * per_aux <= budget
     # as few chunks as the budget allows
     assert len(ranges) == -(-naux // max(1, min(naux, budget // per_aux)))
+
+
+@pytest.mark.parametrize("empty", ["nz", "nocc", "nvir", "naux"])
+def test_df_exchange_refuses_an_empty_extent(empty):
+    """The K1 wrapper raises ValueError on an empty extent before it plans
+    its aux chunk, for CPU tensors too."""
+    n = {"nz": 2, "nocc": 3, "nvir": 4, "naux": 5, empty: 0}
+    B = torch.zeros((n["naux"], 8, 8), dtype=torch.float64)
+    z = torch.zeros((n["nz"], n["nocc"], n["nvir"]), dtype=torch.float64)
+    with pytest.raises(ValueError, match="empty extent"):
+        k1.df_exchange(B, z, 0, 3, with_t=False)

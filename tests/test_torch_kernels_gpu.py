@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 against their plain torch versions, on a GPU.
+"""The CUDA kernels K1-K3, every mode, against their plain torch versions, on a GPU.
 
 f64 to relative 1e-11 and f32 to 1e-4 of the largest entry (the summation
 order differs).  Skips without a card.  The machine with the card has no
@@ -73,6 +73,78 @@ def test_kernels_match_plain(cuda, shape, dtype, rtol):
     _rel_close(k3.grid_back(dwv, dwg, phi, 0, nocc, acc.clone()),
                k3.grid_back_plain(dwv, dwg, phi, 0, nocc, acc.clone()), rtol)
     torch.cuda.synchronize()
+
+
+# spin-flip modes: (naux, nmo, n_o, v0, n_v, nz, gc); o = [0, n_o), v = [v0, v0 + n_v)
+FLIP_SHAPES = {
+    "small_overlap": (64, 40, 13, 9, 31, 3, 300),  # v0 inside the occupied range, off a run
+    "ttm_down": (512, 182, 137, 136, 46, 10, 8192),
+    "ttm_up": (512, 182, 136, 137, 45, 10, 8192),
+    "bench_down": (128, 1000, 80, 78, 922, 4, 4096),
+    "nv_below_tile": (100, 60, 50, 55, 5, 2, 256),
+    "nz1": (96, 120, 30, 27, 93, 1, 256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True], ids=["one_table", "two_tables"])
+@pytest.mark.parametrize("shape", list(FLIP_SHAPES.values()), ids=list(FLIP_SHAPES))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11), (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_flip_modes_match_plain(cuda, shape, two, dtype, rtol):
+    """Exchange-only K1 and value-only / four-component K2 and K3 on
+    overlapping o/v ranges, with the virtual side on the same or on a
+    second tensor and table."""
+    naux, nmo, n_o, v0, n_v, nz, gc = shape
+    g = torch.Generator(cuda).manual_seed(1)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda, dtype=dtype)
+
+    def sym(*s):
+        B = randn(*s)
+        return (B + B.transpose(1, 2)).mul_(0.5)
+
+    B = sym(naux, nmo, nmo)
+    Bv = sym(naux, nmo, nmo) if two else None
+    z = randn(nz, n_o, n_v)
+    t, K = k1.df_exchange(B, z, 0, v0, B_vir=Bv, with_t=False)
+    tp, Kp = k1.df_exchange_plain(B, z, 0, v0, 64, B_vir=Bv, with_t=False)
+    assert t is None and tp is None
+    _rel_close(K, Kp, rtol)
+    del B, Bv, K, Kp
+    table = randn(4, gc + 64, nmo)
+    phi = table[:, 32:32 + gc]
+    phi_v = randn(4, gc, nmo) if two else None
+    mask = (torch.rand(gc, generator=g, device=cuda) > 0.1).to(dtype)
+    dwv, dwg = randn(nz, gc), randn(nz, 3, gc)
+    for ncomp, m in ((1, None), (4, mask), (4, None)):
+        _rel_close(k2.grid_rho1(phi, z, 0, v0, m, phi_v=phi_v, ncomp=ncomp),
+                   k2.grid_rho1_plain(phi, z, 0, v0, m, phi_v=phi_v, ncomp=ncomp), rtol)
+    acc = randn(nz, n_o, n_v)
+    for dg in (None, dwg):
+        _rel_close(k3.grid_back(dwv, dg, phi, 0, v0, acc.clone(), phi_v=phi_v),
+                   k3.grid_back_plain(dwv, dg, phi, 0, v0, acc.clone(), phi_v=phi_v), rtol)
+    # the value row alone of a table is enough for the value-only modes
+    p0 = phi[:1]
+    _rel_close(k3.grid_back(dwv, None, p0, 0, v0, acc.clone()),
+               k3.grid_back_plain(dwv, None, p0, 0, v0, acc.clone()), rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_empty_extents(cuda):
+    """No kernel is launched on an empty extent: the wrappers raise."""
+    B = torch.zeros((4, 6, 6), device=cuda, dtype=torch.float64)
+    phi = torch.zeros((4, 8, 6), device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        k1.df_exchange(B, torch.zeros((2, 3, 0), device=cuda, dtype=torch.float64), 0, 3,
+                       with_t=False)
+    with pytest.raises(ValueError):
+        k2.grid_rho1(phi, torch.zeros((0, 3, 3), device=cuda, dtype=torch.float64), 0, 3)
+    with pytest.raises(ValueError):
+        k3.grid_back(torch.zeros((2, 8), device=cuda, dtype=torch.float64), None, phi, 0, 3,
+                     torch.zeros((2, 0, 3), device=cuda, dtype=torch.float64))
 
 
 def test_cpu_tensors_take_the_plain_version():

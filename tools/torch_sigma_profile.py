@@ -1,10 +1,12 @@
-"""Where a DF X-TDA sigma build of the PyTorch port spends its time, on a GPU.
+"""Where a DF sigma build of the PyTorch port spends its time, on a GPU.
 
-    python3 tools/torch_sigma_profile.py [--ttm] [--bench] [--xtda] [--out DIR]
+    python3 tools/torch_sigma_profile.py [--op xtda|xsf] [--ttm] [--bench] [--xtda] [--out DIR]
     python3 tools/torch_sigma_profile.py --solve N --against DIR
 
 Builds the operator (TTM/STO-3G from ``tests/data/ttm_ckpt.npz`` in f64,
-and/or the nmo=1000 bench operator in f32), times a few sigma builds of the
+and/or the nmo=1000 bench operator in f32; ``--op xtda``, the default, the
+spin-conserving X-TDA sigma, ``--op xsf`` the spin-flip XSF-TDA sigma: SA=0
+on the TTM doublet, SA=3 at the bench width), times a few sigma builds of the
 main path's block size with the host clock around ``torch.cuda.synchronize``,
 then profiles one build with ``torch.profiler`` and prints the device time
 by kernel and the summed kernel time of that build (one stream, so the
@@ -33,23 +35,32 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def _ttm_op():
+def _make_op(data, which: str, SA: int):
+    from xtddft_tpu_torch.response.sigma_df import xsf_sigma_df, xtda_sigma_df
+
+    if which == "xsf":
+        return xsf_sigma_df(data, SA=SA, remove=True, method=0)
+    return xtda_sigma_df(data)
+
+
+def _ttm_op(which: str):
     from xtddft_tpu_torch.response.reference_state import make_reference
-    from xtddft_tpu_torch.response.sigma_df import build_df_data, xtda_sigma_df
+    from xtddft_tpu_torch.response.sigma_df import build_df_data
     from xtddft_tpu_torch.scf.checkpoint import load_mf
 
     mf = load_mf(str(ROOT / "tests/data/ttm_ckpt.npz"), df=True, device="cuda",
                  dtype=torch.float64)
-    op = xtda_sigma_df(build_df_data(make_reference(mf)))
+    op = _make_op(build_df_data(make_reference(mf)), which, SA=0)
     return op, op.init_guess(10).shape[0]
 
 
-def _bench_op():
-    from xtddft_tpu_torch.response.sigma_df import synthetic_df_data, xtda_sigma_df
+def _bench_op(which: str):
+    from xtddft_tpu_torch.response.sigma_df import synthetic_df_data
 
     g = torch.Generator("cuda").manual_seed(0)
-    op = xtda_sigma_df(synthetic_df_data(generator=g, device="cuda", dtype=torch.float32))
-    return op, op.init_guess(20).shape[0]
+    op = _make_op(synthetic_df_data(generator=g, device="cuda", dtype=torch.float32),
+                  which, SA=3)
+    return op, op.init_guess(10 if which == "xsf" else 20).shape[0]
 
 
 def profile(label: str, op, nb: int, out: pathlib.Path | None) -> dict:
@@ -159,6 +170,7 @@ def solve_pairs(n: int, against: pathlib.Path) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--op", choices=("xtda", "xsf"), default="xtda")
     ap.add_argument("--ttm", action="store_true")
     ap.add_argument("--bench", action="store_true")
     ap.add_argument("--xtda", action="store_true")
@@ -182,9 +194,9 @@ def main(argv=None) -> int:
         xtda_solves(args.solve)
         return 0
     if args.ttm or not args.bench:
-        profile("ttm", *_ttm_op(), args.out)
+        profile(f"ttm_{args.op}", *_ttm_op(args.op), args.out)
     if args.bench or not args.ttm:
-        profile("bench", *_bench_op(), args.out)
+        profile(f"bench_{args.op}", *_bench_op(args.op), args.out)
     return 0
 
 

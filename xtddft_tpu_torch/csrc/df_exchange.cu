@@ -1,11 +1,19 @@
-// K1 `df_exchange`: density-fitted exchange of the X-TDA sigma for one spin block.
+// K1 `df_exchange`: density-fitted exchange of a sigma build for one block of
+// trial vectors.
 //
-// Replaces `xtddft_tpu/response/sigma_df.py` `xtda_sigma_df._jk` (:399-433),
-// whose aux-chunked einsums compute, for trial vectors z[x, j, b]:
+// Replaces `xtddft_tpu/response/sigma_df.py` `xtda_sigma_df._jk` (:399-433)
+// and the spin-flip exchange `sf_sigma_df._k` (:821) / `xsf_sigma_df._k`
+// (:1066), whose aux-chunked einsums compute, for trial vectors z[x, j, b]:
 //
-//   t[x, P]    = sum_jb B[P, o0+j, v0+b] z[x, j, b]
-//   T[P,j,x,a] = sum_b  z[x, j, b] B[P, v0+a, v0+b]             (half-transform)
+//   t[x, P]    = sum_jb B[P, o0+j, v0+b] z[x, j, b]             (Coulomb; optional)
+//   T[P,j,x,a] = sum_b  z[x, j, b] Bv[P, v0+a, v0+b]            (half-transform)
 //   K[x, i, a] = sum_Pj B[P, o0+j, o0+i] T[P, j, x, a]
+//
+// Bv is B itself for a spin-conserving block.  A spin-flip block pairs the
+// occupied orbitals of one spin with the virtuals of the other: Bv is then
+// the other spin's MO transform (UKS, flip-up), its o and v ranges may
+// overlap (flip-down on a restricted-open reference: o = [0, nc+no),
+// v = [nc, nmo)), and it has no Coulomb term (t == nullptr skips that kernel).
 //
 // Bound on an H100: flops, 2*naux*nz*nocc*nvir*(nvir+nocc+1) (5.9e12 at the
 // bench shape, 88 ms at 67 TFLOP/s in f32 FMA or f64 DMMA; 9.9e10 at
@@ -33,9 +41,10 @@
 // Where B's strides rule out 16-byte runs (f32 with nmo not a multiple of
 // 4, as TTM/STO-3G's 182), its copies go one element at a time.
 //
-// Layout: B is any strided (naux, nmo, nmo) view (strides sP, sp, sq in
-// elements); z is contiguous (nz, nocc, nvir) and zT its transpose as
-// above (ld columns, shift leading zero rows); t (nz, naux) is written;
+// Layout: B and Bv are any strided (naux, nmo, nmo) views (strides sP, sp,
+// sq and vP, vp, vq in elements); z is contiguous (nz, nocc, nvir) and zT its transpose as
+// above (ld columns, shift leading zero rows); t (nz, naux) is written
+// unless null;
 // K (nz, nocc, nvir) is accumulated (the caller zeroes it); Tb holds
 // chunk*nocc rows of np elements.  Launches on the caller's stream,
 // allocates nothing, returns the first CUDA error.
@@ -101,8 +110,10 @@ coulomb_t_kernel(const T* __restrict__ B, int64_t sP, int64_t sp, int64_t sq, in
 
 template <typename T>
 struct Args {
-  const T* B;
+  const T* B;  // occupied side (and the ov block of t)
   int64_t sP, sp, sq;
+  const T* Bv;  // virtual side of the half-transform
+  int64_t vP, vp, vq;
   int naux;
   const T* z;
   const T* zT;  // z as [shift + b][m = x*nocc + j], ld columns, zero padded
@@ -115,9 +126,11 @@ struct Args {
 };
 
 // stage A: T[q, j, x, a] = sum_b z[x, j, b] B[P0+q, v0+a, v0+b], m = x*nocc + j.
-// k runs over the columns v0 - shift .. v0 + nvir of B, so that its rows'
+// k runs over the columns v0 - shift .. v0 + nvir of Bv, so that its rows'
 // 16-byte runs start aligned; zT's first shift rows are zero, so the
-// columns before v0 (finite values of the same tensor) add nothing.
+// columns before v0 (finite values of the same tensor: padding of the
+// virtual block, or live occupied columns when the ranges overlap) add
+// nothing.
 template <class Core>
 struct HalfTransform {
   using T = typename Core::Elem;
@@ -131,8 +144,8 @@ struct HalfTransform {
     const int k0 = kt * Core::BK, M_ = M, nvir = a.nvir, kend = a.shift + a.nvir;
     const int ldz = a.ldz;
     const T* zT = a.zT;
-    const T* Bq = a.B + (int64_t)(P0 + q) * a.sP + (int64_t)(a.v0 - a.shift) * a.sq;
-    const int64_t sp = a.sp, sq = a.sq;
+    const T* Bq = a.Bv + (int64_t)(P0 + q) * a.vP + (int64_t)(a.v0 - a.shift) * a.vq;
+    const int64_t sp = a.vp, sq = a.vq;
     const int v0 = a.v0;
     Core::template copy<gt::KMAJOR, Core::BM, Core::LDA>(
         stage, true, zT, [&](int r, int k, int w) -> gt::Run<T> {
@@ -140,7 +153,7 @@ struct HalfTransform {
           return {zT + (int64_t)kk * ldz + m, kk < kend ? max(0, min(w, M_ - m)) : 0};
         });
     Core::template copy<gt::NMAJOR, Core::BN, Core::LDB>(
-        stage + Core::A_ELEMS, vecB, a.B, [&](int r, int k, int w) -> gt::Run<T> {
+        stage + Core::A_ELEMS, vecB, a.Bv, [&](int r, int k, int w) -> gt::Run<T> {
           const int n = n0 + r, kk = k0 + k;
           return {Bq + (int64_t)(v0 + n) * sp + (int64_t)kk * sq,
                   n < nvir ? max(0, min(w, kend - kk)) : 0};
@@ -196,16 +209,19 @@ int launch(const Args<T>& g, int chunk, void* stream_ptr) {
       !gt::aligned16(g.zT, {}) || !gt::aligned16(g.Tb, {}))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const dim3 tgrid((g.naux + T_PB - 1) / T_PB, (g.nz + T_XG - 1) / T_XG);
-  coulomb_t_kernel<T><<<tgrid, T_NT, 0, stream>>>(g.B, g.sP, g.sp, g.sq, g.naux, g.z, g.nz,
-                                                  g.nocc, g.nvir, g.o0, g.v0, g.t);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  if (g.t != nullptr) {
+    const dim3 tgrid((g.naux + T_PB - 1) / T_PB, (g.nz + T_XG - 1) / T_XG);
+    coulomb_t_kernel<T><<<tgrid, T_NT, 0, stream>>>(g.B, g.sP, g.sp, g.sq, g.naux, g.z, g.nz,
+                                                    g.nocc, g.nvir, g.o0, g.v0, g.t);
+    err = cudaGetLastError();
+  }
   using CoreA = gt::Core<T, 16, 1, 3, gt::NMAJOR>;
   using CoreB = gt::Core<T, 16, 1, 3, gt::KMAJOR>;
-  // 16-byte runs along a row of B: k contiguous, rows and aux slices
+  // 16-byte runs along a row of Bv: k contiguous, rows and aux slices
   // aligned, and the first column v0 - shift on a run boundary
-  const bool vec_vv = g.sq == 1 && (g.v0 - g.shift) % V == 0 &&
-                      gt::aligned16(g.B, {g.sp, g.sP});
+  const bool vec_vv = g.vq == 1 && (g.v0 - g.shift) % V == 0 &&
+                      gt::aligned16(g.Bv, {g.vp, g.vP});
   // along a column of B_oo: i contiguous
   const bool vec_oo = g.sq == 1 && g.o0 % V == 0 && gt::aligned16(g.B, {g.sp, g.sP});
   const int kv = (g.shift + g.nvir + CoreA::BK - 1) / CoreA::BK;
@@ -225,22 +241,22 @@ int launch(const Args<T>& g, int chunk, void* stream_ptr) {
 
 extern "C" {
 
-int df_exchange_f64(const double* B, long long sP, long long sp, long long sq, int naux,
-                    const double* z, const double* zT, int ldz, int shift, int nz, int nocc,
-                    int nvir, int o0, int v0, double* t, double* K, double* Tb, int np,
-                    int chunk, void* stream) {
-  return launch<double>({B, sP, sp, sq, naux, z, zT, ldz, shift, nz, nocc, nvir, o0, v0, t, K,
-                         Tb, np},
+int df_exchange_f64(const double* B, long long sP, long long sp, long long sq, const double* Bv,
+                    long long vP, long long vp, long long vq, int naux, const double* z,
+                    const double* zT, int ldz, int shift, int nz, int nocc, int nvir, int o0,
+                    int v0, double* t, double* K, double* Tb, int np, int chunk, void* stream) {
+  return launch<double>({B, sP, sp, sq, Bv, vP, vp, vq, naux, z, zT, ldz, shift, nz, nocc, nvir,
+                         o0, v0, t, K, Tb, np},
                         chunk, stream);
 }
 
-int df_exchange_f32(const float* B, long long sP, long long sp, long long sq, int naux,
-                    const float* z, const float* zT, int ldz, int shift, int nz, int nocc,
-                    int nvir, int o0, int v0, float* t, float* K, float* Tb, int np, int chunk,
-                    void* stream) {
-  return launch<float>({B, sP, sp, sq, naux, z, zT, ldz, shift, nz, nocc, nvir, o0, v0, t, K,
-                        Tb, np},
-                       chunk, stream);
+int df_exchange_f32(const float* B, long long sP, long long sp, long long sq, const float* Bv,
+                    long long vP, long long vp, long long vq, int naux, const float* z,
+                    const float* zT, int ldz, int shift, int nz, int nocc, int nvir, int o0,
+                    int v0, float* t, float* K, float* Tb, int np, int chunk, void* stream) {
+  return launch<float>({B, sP, sp, sq, Bv, vP, vp, vq, naux, z, zT, ldz, shift, nz, nocc, nvir,
+                         o0, v0, t, K, Tb, np},
+                        chunk, stream);
 }
 
 const char* xk_error_string(int code) {

@@ -2,9 +2,9 @@
 
 | kernel        | replaces (JAX package)                 | module        | design                                        |
 |---------------|----------------------------------------|---------------|-----------------------------------------------|
-| `df_exchange` | `response/sigma_df.py:399` `_jk`       | `df_exchange` | two GEMMs on the tile core (`csrc/gemm_tile.cuh`) through an aux-chunked T buffer, plus a t reduction |
-| `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1` | `grid_rho1`   | one block per (vector, grid tile), tmp in registers |
-| `grid_back`   | `response/sigma_df.py:525` `_fxc.back` | `grid_back`   | one GEMM on the tile core, F formed in shared memory, one launch per jvp group and spin |
+| `df_exchange` | `response/sigma_df.py:399` `_jk`, `:821`/`:1066` the flip `_k` | `df_exchange` | two GEMMs on the tile core (`csrc/gemm_tile.cuh`) through an aux-chunked T buffer, plus a t reduction (skipped in the exchange-only flip mode; the virtual panel may come from a second tensor) |
+| `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1`, `:857`/`:1105` the flip transition density | `grid_rho1`   | one block per (vector, grid tile), tmp in registers; four components or the value alone; the virtual side may read a second table |
+| `grid_back`   | `response/sigma_df.py:525` `_fxc.back`, `:861`/`:1113` the flip back-projection | `grid_back`   | one GEMM on the tile core, F formed in shared memory, one launch per point span; four components or the value alone; second table likewise |
 
 The tile core runs f64 on the DMMA tensor cores (`mma.sync` m16n8k8) and
 f32 as register-tiled FMA, with `cp.async` staging.  Every wrapper runs its

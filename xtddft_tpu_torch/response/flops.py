@@ -1,7 +1,8 @@
 """Operation and byte counts of the sigma build and of its kernels.
 
 ``matvec_flops`` counts one blocked DF X-TDA sigma build the way the
-repository's benchmark does (the port keeps its own copy).  The per-kernel
+repository's benchmark does (the port keeps its own copy);
+``sf_matvec_flops`` one spin-flip build the same way.  The per-kernel
 counts give each kernel's bound on the card: the larger of its operations
 over the peak rate for its type and its bytes over the memory rate, with
 every input read once and every output written once.
@@ -40,47 +41,69 @@ def matvec_flops(nc, no, nv, naux, ngrid, nb, hyb_terms=1):
     return jk + fxc
 
 
-def df_exchange_flops(naux, nz, nocc, nvir):
-    """K1: t (2*naux*nz*nocc*nvir), T (... * nvir) and K (... * nocc)."""
-    return 2.0 * naux * nz * nocc * nvir * (nvir + nocc + 1)
+def sf_matvec_flops(n_o, n_v, naux, ngrid, nb, kdim=1, hyb_terms=1):
+    """Analytic flop count of one blocked DF spin-flip sigma build (nb
+    vectors) on its (n_o, n_v) block, counted per einsum like
+    ``matvec_flops``: the exchange half-transform and back-contraction (no
+    Coulomb term in a flip channel), and the SF kernel's transition density
+    and back-projection at 2*ngrid*n_o*n_v*nb each per component (kdim 1:
+    ALDA0; 4: multicollinear; 0: collinear, no grid term)."""
+    T = 2.0 * naux * n_o * n_v * n_v * nb
+    K = 2.0 * naux * n_o * n_o * n_v * nb
+    return hyb_terms * (T + K) + 2.0 * 2.0 * kdim * ngrid * n_o * n_v * nb
 
 
-def df_exchange_bytes(naux, nz, nocc, nvir, itemsize):
-    """K1: the oo, ov and vv blocks of B and z read; t and K written."""
-    reads = naux * (nocc * nocc + nocc * nvir + nvir * nvir) + nz * nocc * nvir
-    writes = nz * naux + nz * nocc * nvir
+def df_exchange_flops(naux, nz, nocc, nvir, with_t=True):
+    """K1: t (2*naux*nz*nocc*nvir, unless exchange-only), T (... * nvir) and
+    K (... * nocc)."""
+    return 2.0 * naux * nz * nocc * nvir * (nvir + nocc + (1 if with_t else 0))
+
+
+def df_exchange_bytes(naux, nz, nocc, nvir, itemsize, with_t=True):
+    """K1: the oo, vv and (for t) ov blocks of B and z read; t and K written."""
+    reads = naux * (nocc * nocc + nvir * nvir) + nz * nocc * nvir
+    writes = nz * nocc * nvir
+    if with_t:
+        reads += naux * nocc * nvir
+        writes += nz * naux
     return float(itemsize) * (reads + writes)
 
 
-def grid_back_flops(nz, nocc, nvir, npts):
+def grid_back_flops(nz, nocc, nvir, npts, ncomp=4):
     """K3, the least a GGA back-projection needs: per vector and point,
     r += [phi0_o, E] [G; phi0_v] with E = sum_y dwg_y phiy_o and
     G = dwv phi0_v + sum_y dwg_y phiy_v, i.e. 4*nocc*nvir + 6*nocc + 8*nvir.
     (The kernel contracts over 4 components, twice the leading term; the
-    MGGA tau term, not ported, would need that.)"""
+    MGGA tau term, not ported, would need that.)  Value-only (ncomp 1):
+    r += (dwv phi0_o) phi0_v, 2*nocc*nvir + nocc, which the kernel does."""
+    if ncomp == 1:
+        return 1.0 * nz * npts * (2 * nocc * nvir + nocc)
     return 2.0 * nz * npts * (2 * nocc * nvir + 3 * nocc + 4 * nvir)
 
 
-def grid_back_bytes(nz, nocc, nvir, npts, itemsize):
+def grid_back_bytes(nz, nocc, nvir, npts, itemsize, ncomp=4):
     """K3: phi_c[g, o] and phi_c[g, v], dwv and dwg read; out read and
     written once (it accumulates)."""
-    reads = 4 * npts * (nocc + nvir) + 4 * nz * npts + nz * nocc * nvir
+    reads = ncomp * npts * (nocc + nvir) + ncomp * nz * npts + nz * nocc * nvir
     return float(itemsize) * (reads + nz * nocc * nvir)
 
 
-def grid_rho1_flops(nz, nocc, nvir, npts):
+def grid_rho1_flops(nz, nocc, nvir, npts, ncomp=4):
     """K2, the least a GGA transition density needs: per vector and point,
     tmp = z . phi0_v and u = z^T . phi0_o (4*nocc*nvir), rho1 = phi0_o . tmp
     (2*nocc) and grad_y rho1 = phiy_o . tmp + phiy_v . u (6*(nocc + nvir)).
     (The kernel contracts z with all four phi_c[g, v], twice the leading
-    term.)"""
+    term.)  Value-only (ncomp 1): tmp and rho1 alone, 2*nocc*nvir + 2*nocc,
+    which the kernel does."""
+    if ncomp == 1:
+        return 2.0 * nz * npts * (nocc * nvir + nocc)
     return 2.0 * nz * npts * (2 * nocc * nvir + 4 * nocc + 3 * nvir)
 
 
-def grid_rho1_bytes(nz, nocc, nvir, npts, itemsize):
-    """K2: phi_c[g, o], phi_c[g, v], z and the mask read; (nz, 4, g) written."""
-    reads = 4 * npts * (nocc + nvir) + nz * nocc * nvir + npts
-    return float(itemsize) * (reads + 4 * nz * npts)
+def grid_rho1_bytes(nz, nocc, nvir, npts, itemsize, ncomp=4, masked=True):
+    """K2: phi_c[g, o], phi_c[g, v], z and the mask read; (nz, ncomp, g) written."""
+    reads = ncomp * npts * (nocc + nvir) + nz * nocc * nvir + (npts if masked else 0)
+    return float(itemsize) * (reads + ncomp * nz * npts)
 
 
 def bound_ms(flops, nbytes, dtype_name):

@@ -1,15 +1,18 @@
 """Density-fitted MO-basis X-TDA sigma operator (the large-Nbf path).
 
 Counterpart of the JAX package's `response/sigma_df.py` for dense B on
-R/RO and U references.  Every sigma build is a handful of contractions over
-the fitted MO tensor
+R/RO and U references: the spin-conserving `xtda_sigma_df` and the spin-flip
+`sf_sigma_df` (up and down) and `xsf_sigma_df` (spin-adapted flip-down).
+Every sigma build is a handful of contractions over the fitted MO tensor
 
     B[P, p, q]  (metric^{-1/2}-dressed),
 
     J:  t_P   = B[P,ov] . z          ;  v += B[ov,P] . t_P
     K:  T[P,o,v'] = B_vv[P,v',v] z_ov;  v -= B_oo[P,o,o'] T[P,o,v']
 
-plus the fxc response factored through MO values on the grid.  The
+plus the fxc response factored through MO values on the grid (the flip
+channels have no J; their xc kernel is a per-point factor between the two
+grid contractions).  The
 exchange (`kernels/df_exchange.py`) and the two grid contractions of the
 fxc (`kernels/grid_rho1.py`, `kernels/grid_back.py`) are hand-written CUDA
 kernels on the card and their plain torch versions on the CPU.
@@ -25,6 +28,7 @@ import torch
 
 from xtddft_tpu_torch.kernels.df_exchange import df_exchange
 from xtddft_tpu_torch.kernels.grid_back import grid_back
+from xtddft_tpu_torch.kernels.grid_rho1 import MAX_POINTS as K2_MAX_POINTS
 from xtddft_tpu_torch.kernels.grid_rho1 import grid_rho1
 from xtddft_tpu_torch.response.reference_state import Reference
 from xtddft_tpu_torch.response.sigma import SigmaOperator, _rho0
@@ -34,6 +38,10 @@ from xtddft_tpu_torch.xc.registry import XCSpec
 
 GRID_CHUNK = 4096  # grid points per K2 launch (K3: one launch per jvp group)
 JVP_POINTS = 1 << 20  # (trial vectors x grid points) per fxc jvp call
+# (vectors x components x points) of rho1 per spin-flip grid span: 256 MiB of
+# r in f64 and as much of wv.  One span holds the whole grid up to 178 vectors
+# at 187,644 points with one component (44 with four), 682 (170) at 49,152.
+SF_SPAN_ELEMS = 1 << 25
 
 
 @dataclasses.dataclass
@@ -238,6 +246,22 @@ def df_data_from_arrays(fields: dict, spec_name: str | None, device=None,
     return DFData(**kw)
 
 
+def _refuse_unported(data: DFData, spmd: bool, packed_row: str) -> None:
+    """Options of the JAX sigmas that the port does not carry yet raise,
+    naming their ROADMAP item."""
+    if spmd:
+        raise NotImplementedError(
+            "spmd sigma: multi-GPU is not ported yet (ROADMAP queue 1, item 15)")
+    if data.packed:
+        raise NotImplementedError(
+            f"packed B: not ported yet (ROADMAP queue 1, item 9; queue 2 row {packed_row})")
+    if data.B_lr is not None and data.hyb_lr != 0.0:
+        raise NotImplementedError(
+            "RSH long-range exchange (B_lr): not ported yet (ROADMAP queue 1, item 2)")
+    if data.B.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"sigma: B in f32 or f64 only, got {data.B.dtype}")
+
+
 def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
                   with_b: bool = False) -> SigmaOperator:
     """Spin-conserving (U/X-)TDA sigma over DF tensors.
@@ -247,18 +271,10 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     Fock terms, the spin-adaptation dA terms, and fxc through the MO-grid
     factorization in grid chunks of 4096 points (zero-weight padded).
     matvec takes and returns (nz, dim) tensors on B's device in B's dtype."""
-    if spmd:
-        raise NotImplementedError(
-            "spmd sigma: multi-GPU is not ported yet (ROADMAP queue 1, item 15)")
     if with_b:
         raise NotImplementedError(
             "with_b (RPA B matvec): not ported yet (ROADMAP queue 1, item 10)")
-    if data.packed:
-        raise NotImplementedError(
-            "packed B: not ported yet (ROADMAP queue 1, item 9; queue 2 row 7)")
-    if data.B_lr is not None and data.hyb_lr != 0.0:
-        raise NotImplementedError(
-            "RSH long-range exchange (B_lr): not ported yet (ROADMAP queue 1, item 2)")
+    _refuse_unported(data, spmd, packed_row="7")
     nc, no, nv = data.nc, data.no, data.nv
     nmo = data.nmo
     nocca, nvira = nc + no, nv
@@ -266,8 +282,6 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     B = data.B
     Bb = data.B_b if data.B_b is not None else B
     dev, dt = B.device, B.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"xtda_sigma_df: B in f32 or f64 only, got {dt}")
     hyb = data.hyb
     naux = B.shape[0]
 
@@ -388,4 +402,198 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         return np.concatenate([top, co, cv], axis=0)
 
     return SigmaOperator(matvec=matvec, hdiag=hdiag, dim=dim, _to_blocked=to_blocked,
+                         device=dev, dtype=dt)
+
+
+def _refuse_unported_flip(data: DFData, spmd: bool, method: int) -> None:
+    _refuse_unported(data, spmd, packed_row="9c")
+    if method == 1 and data.spec is not None and data.spec.needs_tau:
+        raise NotImplementedError(
+            "multicollinear kernel with a meta-GGA: the tau channel is not ported "
+            "yet (ROADMAP queue 1, item 3)")
+
+
+def _flip_block(data: DFData, extype: str, method: int):
+    """The part every spin-flip sigma shares, on the rectangular (n_o, n_v)
+    block of one flip direction:
+
+        apply(z)[x,i,a] = -hyb sum_P Bocc[P,i,j] Bvir[P,a,b] z[x,j,b]     (K1)
+                          + back(sf_k . rho1(z))                      (K2, K3)
+                          + f_vir z - z f_occ,
+
+    flip-up: (occ, vir) = (beta-occupied [0, nc), alpha-virtual [nc+no,
+    nmo)); flip-down: (alpha-occupied [0, nc+no), beta-virtual [nc, nmo)),
+    whose ranges overlap on the open shells.  There is no Coulomb term.  The
+    SF kernel ``sf_k`` carries the quadrature weight and is zero on
+    negligible-density points, so the transition density goes unmasked.
+    Returns (apply, n_o, n_v, e_occ, e_vir)."""
+    nc, no, nv = data.nc, data.no, data.nv
+    B_a, phi_a = data.B, data.phi
+    B_b = data.B_b if data.B_b is not None else B_a
+    phi_b = data.phi_b if data.phi_b is not None else phi_a
+    if extype == "up":
+        n_o, o_s, n_v, v0, v_s = nc, 1, nv, nc + no, 0
+    elif extype == "down":
+        n_o, o_s, n_v, v0, v_s = nc + no, 0, no + nv, nc, 1
+    else:
+        raise ValueError(f"extype must be 'up' or 'down', got {extype!r}")
+    B_o, B_v = (B_a, B_b)[o_s], (B_a, B_b)[v_s]
+    phi_o, phi_v = (phi_a, phi_b)[o_s], (phi_a, phi_b)[v_s]
+    dev, dt = B_a.device, B_a.dtype
+    hyb = data.hyb
+    f_occ_np = np.asarray(data.fock_mo[o_s])[:n_o, :n_o]
+    f_vir_np = np.asarray(data.fock_mo[v_s])[v0:, v0:]
+    f_occ = torch.as_tensor(f_occ_np, dtype=dt, device=dev)
+    f_vir = torch.as_tensor(f_vir_np, dtype=dt, device=dev)
+
+    has_xc = (method in (0, 1) and data.spec is not None
+              and bool(data.spec.components) and data.phi is not None)
+    if has_xc:
+        if method == 0:
+            sf_k = xci.sf_kernel_alda0(data.spec, data.grid_w, data.rho0).to(dt)  # (g,)
+            kdim = 1
+        else:
+            from xtddft_tpu_torch.xc.mcol import sf_kernel_mcol
+
+            sf_k = sf_kernel_mcol(data.spec, data.grid_w, data.rho0).to(dt)  # (g, 4, 4)
+            kdim = 4
+        ngrid = int(sf_k.shape[0])
+
+    def _sf_xc(z):
+        """One launch of K2 and of K3 per point span, the per-point kernel
+        application between them as a torch op."""
+        nz = z.shape[0]
+        out = torch.zeros((nz, n_o, n_v), dtype=dt, device=dev)
+        span = max(1, min(ngrid, K2_MAX_POINTS, SF_SPAN_ELEMS // (nz * kdim)))
+        for g0 in range(0, ngrid, span):
+            g = slice(g0, g0 + span)
+            po, pv = phi_o[:, g], phi_v[:, g]
+            r = grid_rho1(po, z, 0, v0, None, phi_v=pv, ncomp=kdim)
+            if kdim == 1:
+                grid_back(sf_k[None, g] * r[:, 0], None, po, 0, v0, out, phi_v=pv)
+            else:
+                wv = torch.einsum("gab,xbg->xag", sf_k[g], r)
+                grid_back(wv[:, 0], wv[:, 1:4], po, 0, v0, out, phi_v=pv)
+        return out
+
+    def apply(z):
+        if z.shape[0] == 0 or n_o == 0 or n_v == 0:
+            return torch.zeros_like(z)
+        vs = z @ f_vir.T - f_occ @ z
+        if hyb != 0.0:
+            _, K = df_exchange(B_o, z, 0, v0, B_vir=None if B_v is B_o else B_v,
+                               with_t=False)
+            vs = vs - hyb * K
+        if has_xc:
+            vs = vs + _sf_xc(z)
+        return vs
+
+    return apply, n_o, n_v, np.diag(f_occ_np), np.diag(f_vir_np)
+
+
+def sf_sigma_df(data: DFData, extype: str = "up", method: int = 0,
+                spmd: bool = False) -> SigmaOperator:
+    """Density-fitted plain SF-TDA sigma (flip-up and flip-down): exchange-only
+    two-electron coupling over the fitted B, the SF xc kernel through the
+    MO-grid factorization, and the Fock terms (see `_flip_block`).
+
+    Row-major (n_o, n_v) trial layout, as the JAX `sf_sigma_df`; flip-down's
+    ``to_blocked`` converts to the CV|CO|OV|OO convention.
+    method: 0 = ALDA0, 1 = multicollinear (LDA/GGA), 2 = collinear (HF
+    exchange only).  matvec takes and returns (nz, dim) tensors on B's
+    device in B's dtype."""
+    _refuse_unported_flip(data, spmd, method)
+    nc, no, nv = data.nc, data.no, data.nv
+    apply, n_o, n_v, e_occ, e_vir = _flip_block(data, extype, method)
+    dev, dt = data.B.device, data.B.dtype
+
+    def matvec(zs):
+        zs = torch.as_tensor(zs, dtype=dt, device=dev)
+        nz = zs.shape[0]
+        return apply(zs.reshape(nz, n_o, n_v)).reshape(nz, -1)
+
+    hdiag = (e_vir[None, :] - e_occ[:, None]).ravel()
+
+    def to_blocked(v):
+        z = v.reshape(n_o, n_v, -1)
+        cv = z[:nc, no:].reshape(nc * nv, -1)
+        co = z[:nc, :no].reshape(nc * no, -1)
+        ov = z[nc:, no:].reshape(no * nv, -1)
+        oo = z[nc:, :no].reshape(no * no, -1)
+        return np.concatenate([cv, co, ov, oo], axis=0)
+
+    return SigmaOperator(matvec=matvec, hdiag=hdiag, dim=n_o * n_v,
+                         _to_blocked=to_blocked if extype == "down" else None,
+                         device=dev, dtype=dt)
+
+
+def xsf_sigma_df(data: DFData, SA: int = 3, foo: float = 1.0, fglobal: float = 1.0,
+                 method: int = 0, remove: bool = True,
+                 spmd: bool = False) -> SigmaOperator:
+    """Density-fitted XSF-TDA sigma: the flip-down block of `_flip_block`
+    (SF exchange from B, ALDA0 or multicollinear kernel on the grid, Fock
+    terms) plus the spin-adapted dA with its small MO tensors built from B
+    (`response/xsf_terms.py`).
+
+    Vector layout as the JAX `xsf_sigma_df`: CV|CO|OV|OO blocked, the OO
+    block compressed through the Sf=Si projector when ``remove`` (to no^2-1
+    columns: none at all for a doublet).  ``SA`` 0-3 selects the dA terms,
+    ``foo`` scales the OO couplings and ``fglobal`` the whole dA."""
+    from xtddft_tpu_torch.response.spaces import sf_oo_projector
+    from xtddft_tpu_torch.response.xsf_terms import (apply_delta_a, delta_a_fock_blocks,
+                                                     delta_a_tensors_from_df)
+
+    _refuse_unported_flip(data, spmd, method)
+    nc, no, nv = data.nc, data.no, data.nv
+    apply, n_o, n_v, e_occ, e_vir = _flip_block(data, "down", method)
+    dev, dt = data.B.device, data.B.dtype
+    d1, d2, d3 = nc * nv, nc * nv + nc * no, nc * nv + nc * no + no * nv
+    noo = no * no - 1 if remove else no * no
+    dim = d3 + noo
+    Vp = sf_oo_projector(no) if remove else None  # (no^2, no^2 - 1), host
+    vects = torch.as_tensor(Vp, dtype=dt, device=dev) if remove else None
+    dA_on = SA > 0 and data.fock_hf_mo is not None and no > 0
+    if dA_on:
+        si = 0.5 * no
+        dA = delta_a_tensors_from_df(data.B, nc, no, SA)
+        dA.update(delta_a_fock_blocks(data.fock_hf_mo[0], data.fock_hf_mo[1], nc, no, dt, dev))
+
+    def matvec(zs):
+        zs = torch.as_tensor(zs, dtype=dt, device=dev)
+        nz = zs.shape[0]
+        zcv = zs[:, :d1].reshape(nz, nc, nv)
+        zco = zs[:, d1:d2].reshape(nz, nc, no)
+        zov = zs[:, d2:d3].reshape(nz, no, nv)
+        zoo = (zs[:, d3:] @ vects.T if remove else zs[:, d3:]).reshape(nz, no, no)
+        z = torch.empty((nz, n_o, n_v), dtype=dt, device=dev)
+        z[:, :nc, no:] = zcv
+        z[:, :nc, :no] = zco
+        z[:, nc:, no:] = zov
+        z[:, nc:, :no] = zoo
+        vs = apply(z)
+        if dA_on:
+            dcv, dco, dov, doo = apply_delta_a(dA, si, SA, foo, zcv, zco, zov, zoo)
+            vs[:, :nc, no:] += fglobal * dcv
+            vs[:, :nc, :no] += fglobal * dco
+            vs[:, nc:, no:] += fglobal * dov
+            vs[:, nc:, :no] += fglobal * doo
+        ooo = vs[:, nc:, :no].reshape(nz, -1)
+        if remove:
+            ooo = ooo @ vects
+        return torch.cat([vs[:, :nc, no:].reshape(nz, -1), vs[:, :nc, :no].reshape(nz, -1),
+                          vs[:, nc:, no:].reshape(nz, -1), ooo], dim=1)
+
+    e_full = e_vir[None, :] - e_occ[:, None]
+    h_oo = e_full[nc:, :no].ravel()
+    if remove:
+        h_oo = np.einsum("pq,p,pq->q", Vp, h_oo, Vp)
+    hdiag = np.concatenate([e_full[:nc, no:].ravel(), e_full[:nc, :no].ravel(),
+                            e_full[nc:, no:].ravel(), h_oo])
+
+    def expand(v):
+        if not remove:
+            return v
+        return np.concatenate([v[:d3], Vp @ v[d3:]], axis=0)
+
+    return SigmaOperator(matvec=matvec, hdiag=hdiag, dim=dim, _to_blocked=expand,
                          device=dev, dtype=dt)

@@ -87,3 +87,27 @@ def make_fxc_jvp(spec: XCSpec):
         return dv
 
     return respond
+
+
+def sf_kernel_alda0(spec: XCSpec, weights, rho0):
+    """ALDA0 spin-flip kernel, weight-included:
+
+        fxc_sf(g) = w * (vxc_a - vxc_b) / (rho_a - rho_b + 1e-9)
+
+    with vxc evaluated in the LDA limit (gradients zeroed for GGA).  The
+    potentials see the sanitized densities; the denominator keeps the raw
+    ones, as in the JAX package (the weight is zero on masked points, so
+    the quotient is zero there whatever the denominator)."""
+    if spec.needs_tau:
+        raise NotImplementedError(
+            "spin-flip kernels are not defined for MGGA functionals here")
+    ra, rb, ga, _ = rho0[:4]
+    w, (ra_s, rb_s, _, _), _ = _sanitize(weights, rho0)
+    efn = exc_density_fn(spec)
+    zg = torch.zeros_like(ga)
+
+    def total(ra_, rb_):
+        return torch.sum(w * efn(ra_, rb_, zg, zg))
+
+    va, vb = torch.func.grad(total, argnums=(0, 1))(ra_s, rb_s)
+    return (va - vb) / (ra - rb + 1e-9)

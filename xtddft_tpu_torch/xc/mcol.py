@@ -1,0 +1,105 @@
+"""Multicollinear spin-flip XC kernel (method=1, 'mcol') for LDA/GGA specs.
+
+Counterpart of the JAX package's `xc/mcol.py` (`_e_point_fn`,
+`sf_kernel_mcol`).  The kernel is the closed form of the multicollinear
+construction (Pu et al., Phys. Rev. Research 5, 013036):
+
+    f^sf_ab(r) = 1/2 * int_{-1}^{1} dt  d^2 e_col / dsigma_a dsigma_b
+                 evaluated at (n, grad n; s = t*m, grad s = t*grad m)
+
+with sigma = (s, grad s) the collinear spin variables.  For LDA functionals
+it equals the ALDA0 kernel, and it is finite at closed-shell points.
+
+The per-point Hessian in the 4 spin variables comes from torch.func autodiff
+of the same energy density used everywhere else (`xc/interface`).  Grid
+points are independent, so the Hessian of the summed energy density is
+block diagonal and its column b is one jvp of the gradient along the unit
+direction b on every point at once: four jvps per batch of (t-samples x
+points), where the JAX code vmaps `jax.hessian` over them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xtddft_tpu_torch.xc import functionals as fl
+from xtddft_tpu_torch.xc.interface import MASK_RHO
+from xtddft_tpu_torch.xc.registry import XCSpec
+
+# Grid points per Hessian batch (times nt samples): 187,644 points go in 6
+# batches, 49,152 in 2; its time on the card is not measured yet.
+MCOL_POINTS = 1 << 15
+
+
+def _e_sum_fn(spec: XCSpec):
+    """total(sv, n, gn): the energy density summed over a batch of points;
+    sv (4, N) = [s, gs_x, gs_y, gs_z], n (N,), gn (3, N)."""
+    comps = [(w, fl.FUNCTIONALS[name]) for w, name in spec.components]
+
+    def total(sv, n, gn):
+        s, gs = sv[0], sv[1:4]
+        ra = 0.5 * (n + s)
+        rb = 0.5 * (n - s)
+        ga = 0.5 * (gn + gs)
+        gb = 0.5 * (gn - gs)
+        gaa = torch.einsum("xg,xg->g", ga, ga)
+        gab = torch.einsum("xg,xg->g", ga, gb)
+        gbb = torch.einsum("xg,xg->g", gb, gb)
+        out = torch.zeros_like(n)
+        for w, f in comps:
+            out = out + w * f(ra, rb, gaa, gab, gbb)
+        return torch.sum(out)
+
+    return total
+
+
+def sf_kernel_mcol(spec: XCSpec, weights, rho0, nt: int = 20):
+    """Weight-included multicollinear SF kernel matrix over the (value,
+    grad_x, grad_y, grad_z) components of the transition density: (ng, 4, 4).
+    A meta-GGA spec (a fifth, tau component) is not ported."""
+    if spec.needs_tau:
+        raise NotImplementedError(
+            "multicollinear kernel with a meta-GGA: the tau channel is not ported "
+            "yet (ROADMAP queue 1, item 3)")
+    ra, rb, ga, gb = rho0
+    dt, dev = ra.dtype, ra.device
+    mask = (ra > MASK_RHO) | (rb > MASK_RHO)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    w = torch.where(mask, weights, zero)
+    n_s = torch.where(mask, ra + rb, one)
+    m_s = torch.where(mask, ra - rb, zero)
+    gn_s = torch.where(mask[None, :], ga + gb, zero)
+    gm_s = torch.where(mask[None, :], ga - gb, zero)
+
+    grad_sv = torch.func.grad(_e_sum_fn(spec), argnums=0)
+
+    # Integrate (1/2) int_{-1}^{1} H(t) dt = int_0^1 H(t) dt (even integrand)
+    # with the substitution t = 1 - (1-u)^3: at full spin polarization the
+    # integrand diverges like (1-t)^{-2/3} (LDA-exchange f_ss at rho_b -> 0)
+    # and the cubic substitution maps it to a bounded integrand, so
+    # Gauss-Legendre in u converges fast.
+    u, wu = np.polynomial.legendre.leggauss(nt)
+    u = 0.5 * (u + 1.0)
+    x = torch.as_tensor(1.0 - (1.0 - u) ** 3, dtype=dt, device=dev)
+    wt = torch.as_tensor(0.5 * wu * 3.0 * (1.0 - u) ** 2, dtype=dt, device=dev)
+
+    sv0 = torch.cat([m_s[None, :], gm_s], dim=0)  # (4, ng)
+    ng = sv0.shape[1]
+    H = torch.empty((ng, 4, 4), dtype=dt, device=dev)
+    for g0 in range(0, ng, MCOL_POINTS):
+        g = slice(g0, g0 + MCOL_POINTS)
+        npts = sv0[:, g].shape[1]
+        # the batch: every t sample of every point of the chunk, t-major
+        sv = (x[None, :, None] * sv0[:, None, g]).reshape(4, -1)
+        n_b = n_s[g].repeat(nt)
+        gn_b = gn_s[:, g].repeat(1, nt)
+        for b in range(4):
+            tangent = torch.zeros_like(sv)
+            tangent[b] = 1.0
+            _, col = torch.func.jvp(lambda s: grad_sv(s, n_b, gn_b), (sv,), (tangent,))
+            H[g, :, b] = torch.einsum("t,atg->ga", wt, col.reshape(4, nt, npts))
+    # SF-TDA kernel = f_xx + f_yy = 2 * transverse second derivative; this
+    # is what makes the LDA limit equal (vxc_a-vxc_b)/(rho_a-rho_b).
+    return 2.0 * H * w[:, None, None]
