@@ -7,10 +7,11 @@ Phases (any failure raises; the script exits non-zero and prints no result):
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    no CUDA device is a failure;
 1. build the native integral engine and the CUDA kernels K1-K3 from the
-   checkout's sources, with the seconds each build took;
+   checkout's sources, all at once, with the seconds each build took;
 2. each kernel against its plain torch version at the main path's shapes
-   (TTM/STO-3G and the nmo=1000 bench operator; K3 also on the span of one
-   jvp group), f64 and f32, with median CUDA-event times of both and the
+   (TTM/STO-3G and the nmo=1000 bench operator; K2 and K3 on one 4096-point
+   chunk and on the span of one jvp group, which the sigma passes them in
+   one launch), f64 and f32, with median CUDA-event times of both and the
    card's bound for the same work (``response/flops.py``) and, where one
    PyTorch call computes the same function (the exchange-only and value-only
    modes: a single einsum), that call's time as ``library_ms``; K1 also at its
@@ -97,18 +98,22 @@ def phase0() -> dict:
 
 
 def phase1() -> dict:
+    """Every build at once: the native engine and one nvcc per kernel source."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from xtddft_tpu_torch import kernels
     from xtddft_tpu_torch.buildlib import BUILD_SECONDS
     from xtddft_tpu_torch.ints import native
 
-    native.load()
-    kernels.build_all()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(native.load), pool.submit(kernels.build_all)]:
+            f.result()
     _log("phase 1 builds (s):", json.dumps(BUILD_SECONDS))
     return dict(BUILD_SECONDS)
 
 
 # (label, nz, naux, nmo, ((nocc, nvir) of the alpha and beta blocks), the
-# grid chunks of one jvp group, the span K3 takes in one launch)
+# grid chunks of one jvp group, the span K2 and K3 take in one launch)
 MAIN_SHAPES = (
     ("ttm", 10, 4412, 182, ((137, 45), (136, 46)), 23),
     ("bench", 20, 2000, 1000, ((80, 920), (78, 922)), 12),
@@ -164,9 +169,9 @@ def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=Non
 
 def phase2() -> dict:
     """Each kernel against its plain version, f64 and f32, TTM and bench
-    shapes, both spin blocks (times and bounds at the alpha block); K3 also
-    on the span of one jvp group; the spin-flip modes at the flip shapes;
-    K1 at its edge cases."""
+    shapes, both spin blocks (times and bounds at the alpha block); K2 and
+    K3 on one chunk and on the span of one jvp group; the spin-flip modes at
+    the flip shapes; K1 at its edge cases."""
     from xtddft_tpu_torch.kernels import df_exchange as k1
     from xtddft_tpu_torch.kernels import grid_back as k3
     from xtddft_tpu_torch.kernels import grid_rho1 as k2
@@ -189,7 +194,7 @@ def phase2() -> dict:
                                   dtype=dtype) / nmo ** 0.5
             phi = phi_all[:, gc:2 * gc]
             phi_span = phi_all[:, gc:gc + span]
-            mask = (torch.rand(gc, generator=g, device="cuda") > 0.05).to(dtype)
+            mask_span = (torch.rand(span, generator=g, device="cuda") > 0.05).to(dtype)
             for spin, (no, nv) in zip("ab", blocks):
                 z = torch.randn((nz, no, nv), generator=g, device="cuda", dtype=dtype)
                 dwv = torch.randn((nz, span), generator=g, device="cuda", dtype=dtype)
@@ -208,11 +213,13 @@ def phase2() -> dict:
                                           k1.df_exchange_plain(B, z, 0, no)]),
                        timed, fl.df_exchange_flops(naux, nz, no, nv),
                        fl.df_exchange_bytes(naux, nz, no, nv, isz))
-                _check(checks, rec(k2.NAME, gc=gc),
-                       lambda: k2.grid_rho1(phi, z, 0, no, mask),
-                       lambda: k2.grid_rho1_plain(phi, z, 0, no, mask),
-                       timed, fl.grid_rho1_flops(nz, no, nv, gc),
-                       fl.grid_rho1_bytes(nz, no, nv, gc, isz))
+                for pts, ph in ((gc, phi), (span, phi_span)):
+                    mk = mask_span[:pts]
+                    _check(checks, rec(k2.NAME, gc=pts),
+                           lambda: k2.grid_rho1(ph, z, 0, no, mk),
+                           lambda: k2.grid_rho1_plain(ph, z, 0, no, mk),
+                           timed, fl.grid_rho1_flops(nz, no, nv, pts),
+                           fl.grid_rho1_bytes(nz, no, nv, pts, isz))
                 one_chunk = (gc, phi, dwv[:, :gc].contiguous(), dwg[..., :gc].contiguous())
                 for pts, ph, dv, dg in (one_chunk, (span, phi_span, dwv, dwg)):
                     _check(checks, rec(k3.NAME, gc=pts),
@@ -220,7 +227,7 @@ def phase2() -> dict:
                            lambda: k3.grid_back_plain(dv, dg, ph, 0, no, out.zero_()).clone(),
                            timed, fl.grid_back_flops(nz, no, nv, pts),
                            fl.grid_back_bytes(nz, no, nv, pts, isz))
-            del B, phi_all, phi, phi_span
+            del B, phi_all, phi, phi_span, mask_span
             torch.cuda.empty_cache()
         for label, nz, naux, nmo, n_o, v0, n_v, npts, two in FLIP_SHAPES:
             def sym_b():
@@ -570,7 +577,8 @@ def main(argv=None) -> int:
 
     entries = []
     for m in kernels.MODULES:
-        # the main path's own shape: TTM, f64, alpha block; K3 on a jvp group's span
+        # the main path's own shape: TTM, f64, alpha block; K2 and K3 on a jvp
+        # group's span
         main_check = [c for c in record["kernels"]["checks"]
                       if c["kernel"] == m.NAME and c["shape"] == "ttm"
                       and c["dtype"] == "float64" and c.get("spin") == "a"][-1]

@@ -123,6 +123,71 @@ def test_grid_back_span_equals_its_chunks():
     _rel_close(span, per.numpy(), RTOL)
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask"])
+def test_grid_rho1_span_equals_its_chunks(masked):
+    """One K2 call on a span of grid chunks (as the sigma makes it, once per
+    jvp group) equals its per-chunk calls side by side (plain version, f64)."""
+    rng = np.random.default_rng(9)
+    nchunk, gc = 3, 64
+    table = torch.as_tensor(rng.normal(size=(4, nchunk * gc + 32, NMO)))
+    phi = table[:, 16:16 + nchunk * gc]  # a strided view, as in the sigma
+    z = torch.as_tensor(rng.normal(size=(NZ, NOCC, NMO - NOCC)))
+    mask = torch.as_tensor(rng.uniform(size=nchunk * gc) > 0.2, dtype=torch.float64)
+    m = mask if masked else None
+    span = k2.grid_rho1(phi, z, 0, NOCC, m)
+    per = [k2.grid_rho1(phi[:, c * gc:(c + 1) * gc], z, 0, NOCC,
+                        None if m is None else m[c * gc:(c + 1) * gc]) for c in range(nchunk)]
+    _rel_close(span, torch.cat(per, dim=-1).numpy(), RTOL)
+
+
+def _emulate_rho1(phi, z, o0, v0, phi_v, ncomp, dtype):
+    """rho1 as the CUDA kernel forms it from the wrapper's operands
+    (`csrc/grid_rho1.cu`): tmp = za^T pv_0 over k, its rows (x, i) against
+    po_c[:, o0 - so + i], and u = zb^T po_0 against pv_c[:, v0 - sv + i], the
+    value row on one of the two, in f64 whatever the layout's type."""
+    nz, nocc, nvir = z.shape
+    pv = phi if phi_v is None else phi_v
+    zt = z.to(dtype)
+    so, sv, za, ra, zb, rb, vu = k2.operands(zt, o0, v0, ncomp)
+    assert vu == (nvir < nocc)
+    out = torch.zeros((nz, ncomp, phi.shape[1]), dtype=torch.float64)
+
+    def gemm(a, r, nrow, b_cols, table, e0, comps):
+        a = a.double()
+        assert a.shape[2] == r and r % k2._ROW_GROUP[zt.element_size()] == 0
+        # rows i >= nrow are zero in a; the table is read only below nrow
+        c = torch.einsum("kxi,gk->xig", a[:, :, :nrow], b_cols)
+        for comp in comps:
+            out[:, comp] += torch.einsum("xig,gi->xg", c, table[comp][:, e0:e0 + nrow])
+
+    tmp_comps = [c for c in range(ncomp) if c > 0 or not vu]
+    u_comps = [c for c in range(ncomp) if c > 0 or vu]
+    assert (za is None) == (not tmp_comps) and (zb is None) == (not u_comps)
+    if tmp_comps:
+        gemm(za, ra, so + nocc, pv[0][:, v0 - sv:v0 + nvir], phi, o0 - so, tmp_comps)
+    if u_comps:
+        gemm(zb, rb, sv + nvir, phi[0][:, o0 - so:o0 + nocc], pv, v0 - sv, u_comps)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("ncomp", [1, 4])
+@pytest.mark.parametrize("o0,nocc,v0,nvir,two", [(0, 11, 11, 23, False), (0, 23, 23, 11, False),
+                                                 (3, 11, 9, 23, False), (1, 20, 14, 9, True)],
+                         ids=["xtda", "more_occupied", "overlap", "offsets_two_tables"])
+def test_grid_rho1_operands_give_plain(o0, nocc, v0, nvir, two, ncomp, dtype):
+    """The A operands that the wrapper lays out (shifted, padded per trial
+    vector, the value row on the GEMM of fewer rows), contracted as the
+    kernel's two GEMMs and tile epilogues, give the plain version: the
+    layout contract between wrapper and kernel."""
+    rng = np.random.default_rng(10)
+    z = torch.as_tensor(rng.normal(size=(NZ, nocc, nvir))).to(dtype).double()
+    phi = torch.as_tensor(rng.normal(size=(4, GC, NMO)))
+    phi_v = torch.as_tensor(rng.normal(size=(4, GC, NMO))) if two else None
+    want = k2.grid_rho1_plain(phi, z, o0, v0, None, phi_v, ncomp)
+    _rel_close(_emulate_rho1(phi, z, o0, v0, phi_v, ncomp, dtype), want.numpy(), RTOL)
+
+
 # ---- the spin-flip modes: overlapping o/v ranges, a second tensor or table ----
 
 N_O, V0 = 13, 9  # o = [0, 13), v = [9, 40): they share four orbitals

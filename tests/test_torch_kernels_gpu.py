@@ -132,6 +132,46 @@ def test_flip_modes_match_plain(cuda, shape, two, dtype, rtol):
     torch.cuda.synchronize()
 
 
+# K2 at the edges of its tiles: (nmo, nocc, o0, v0, nvir, nz, gc, second
+# table, the table's first point); o = [o0, o0 + nocc), v = [v0, v0 + nvir)
+K2_EDGES = {
+    "ragged_tiles": (220, 70, 0, 70, 150, 3, 1000, False, 0),  # nocc, nvir, gc off the tiles
+    "nvir_below_kstep": (60, 50, 0, 55, 5, 2, 300, False, 0),  # nvir < one 16-wide k step
+    "one_vector": (120, 30, 0, 30, 90, 1, 513, False, 0),
+    "points_ragged": (64, 21, 0, 21, 43, 3, 4099, False, 0),
+    "overlap_two_tables": (75, 30, 0, 27, 48, 4, 700, True, 0),
+    "shifted_both": (80, 13, 3, 17, 61, 3, 257, True, 0),  # o0 and v0 off a 16-byte run
+    "many_vectors": (40, 3, 0, 3, 37, 50, 260, False, 0),  # 4-row vectors, many per row tile
+    "unaligned_table": (183, 60, 0, 61, 122, 5, 640, True, 1),  # element copies: odd nmo, start
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(K2_EDGES.values()), ids=list(K2_EDGES))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11), (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_grid_rho1_edges(cuda, shape, dtype, rtol):
+    """K2's two GEMMs and tile epilogues at ragged and degenerate extents,
+    with and without mask, value-only and four-component."""
+    nmo, nocc, o0, v0, nvir, nz, gc, two, g0 = shape
+    g = torch.Generator(cuda).manual_seed(2)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda, dtype=dtype)
+
+    phi = randn(4, g0 + gc + 8, nmo)[:, g0:g0 + gc]
+    phi_v = randn(4, gc + 8, nmo)[:, g0:g0 + gc] if two else None
+    z = randn(nz, nocc, nvir)
+    mask = (torch.rand(gc, generator=g, device=cuda) > 0.1).to(dtype)
+    before = k2.launches
+    for ncomp in (1, 4):
+        for m in (None, mask):
+            _rel_close(k2.grid_rho1(phi, z, o0, v0, m, phi_v=phi_v, ncomp=ncomp),
+                       k2.grid_rho1_plain(phi, z, o0, v0, m, phi_v=phi_v, ncomp=ncomp), rtol)
+    assert k2.launches == before + 4
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_empty_extents(cuda):
     """No kernel is launched on an empty extent: the wrappers raise."""

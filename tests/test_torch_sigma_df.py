@@ -3,7 +3,10 @@
 
 (a) FH/6-31G ROKS BHandHLYP, each package building its own reference and DF
     data from the same checkpoint (J, K, fxc and the dA terms);
-(b) a JAX ``synthetic_df_data`` carried across with ``df_data_from_arrays``.
+(b) a JAX ``synthetic_df_data`` carried across with ``df_data_from_arrays``;
+
+and the port's matvec with the fxc's point spans cut finer (more jvp groups,
+one K2 and one K3 call per group and spin) against the same JAX matvec.
 """
 
 import dataclasses
@@ -16,6 +19,7 @@ import torch
 from xtddft_tpu.response import sigma_df as jax_sigma_df
 from xtddft_tpu.response.reference_state import make_reference as jax_make_reference
 from xtddft_tpu.scf.checkpoint import load_mf as jax_load_mf
+from xtddft_tpu_torch.kernels.grid_rho1 import grid_rho1
 from xtddft_tpu_torch.response import sigma_df
 from xtddft_tpu_torch.response.reference_state import make_reference
 from xtddft_tpu_torch.scf.checkpoint import load_mf
@@ -40,7 +44,7 @@ def _ops_fh():
         jax_make_reference(jax_load_mf(CKPT, df=True))))
     data = sigma_df.build_df_data(make_reference(
         load_mf(CKPT, df=True, device="cpu", dtype=torch.float64)))
-    return jop, sigma_df.xtda_sigma_df(data)
+    return jop, sigma_df.xtda_sigma_df(data), data
 
 
 def _ops_synthetic():
@@ -52,16 +56,17 @@ def _ops_synthetic():
         fields[k] = np.asarray(fields[k])
     data = sigma_df.df_data_from_arrays(fields, jdata.spec.name, device="cpu",
                                         dtype=torch.float64)
-    return jax_sigma_df.xtda_sigma_df(jdata), sigma_df.xtda_sigma_df(data)
+    return jax_sigma_df.xtda_sigma_df(jdata), sigma_df.xtda_sigma_df(data), data
 
 
 @pytest.fixture(scope="module", params=["fh", "synthetic"])
 def ops(request):
+    """(JAX operator, port operator, the port's DFData)."""
     return {"fh": _ops_fh, "synthetic": _ops_synthetic}[request.param]()
 
 
 def test_matvec(ops):
-    jop, op = ops
+    jop, op, _ = ops
     assert op.dim == jop.dim
     z = np.random.default_rng(11).normal(size=(NZ, op.dim))
     want = np.asarray(jop.matvec(z))
@@ -70,15 +75,45 @@ def test_matvec(ops):
 
 
 def test_hdiag_and_init_guess(ops):
-    jop, op = ops
+    jop, op, _ = ops
     _rel_close(op.hdiag, jop.hdiag)
     np.testing.assert_array_equal(op.init_guess(5), jop.init_guess(5))
 
 
 def test_blocked_layout(ops):
-    jop, op = ops
+    jop, op, _ = ops
     v = np.random.default_rng(5).normal(size=(op.dim, 3))
     np.testing.assert_array_equal(op.to_blocked(v), jop.to_blocked(v))
+
+
+# (grid chunk, jvp points): 4, 3 and 2 jvp groups of 1-3 chunks on FH's
+# 9568 points (the defaults make one group of 3 chunks there)
+SPANS = [(1000, NZ * 3000), (4096, NZ * 4096), (2048, NZ * 3 * 2048)]
+
+
+@pytest.mark.parametrize("chunk,jvp_points", SPANS)
+def test_matvec_point_spans(ops, monkeypatch, chunk, jvp_points):
+    """The fxc on finer point spans (K2 and K3 once per jvp group and spin,
+    the last span ragged or padded) gives the JAX matvec."""
+    jop, _, data = ops
+    monkeypatch.setattr(sigma_df, "GRID_CHUNK", chunk)
+    monkeypatch.setattr(sigma_df, "JVP_POINTS", jvp_points)
+    calls = []
+
+    def counted(phi, *args, **kw):
+        calls.append(phi.shape[1])
+        return grid_rho1(phi, *args, **kw)
+
+    monkeypatch.setattr(sigma_df, "grid_rho1", counted)
+    op = sigma_df.xtda_sigma_df(data)
+    z = np.random.default_rng(11).normal(size=(NZ, op.dim))
+    _rel_close(op.matvec(torch.as_tensor(z)).numpy(), np.asarray(jop.matvec(z)))
+    # one call per group and spin, the spans tiling the padded grid
+    ngrid = data.grid_w.shape[0]
+    ngc = -(-ngrid // min(chunk, ngrid))
+    group = max(1, jvp_points // (NZ * min(chunk, ngrid)))
+    assert len(calls) == 2 * -(-ngc // group)
+    assert sum(calls) == 2 * ngc * min(chunk, ngrid)
 
 
 def test_options_not_ported_raise():

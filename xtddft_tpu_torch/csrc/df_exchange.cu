@@ -134,7 +134,7 @@ struct Args {
 template <class Core>
 struct HalfTransform {
   using T = typename Core::Elem;
-  static constexpr bool kReduce = false, kTransform = false;
+  static constexpr bool kReduce = false, kTransform = false, kTile = false;
   int M, N, nkt, nq, extra;
   Args<T> a;
   int P0;
@@ -170,7 +170,7 @@ struct HalfTransform {
 template <class Core>
 struct ExchangeBack {
   using T = typename Core::Elem;
-  static constexpr bool kReduce = true, kTransform = false;
+  static constexpr bool kReduce = true, kTransform = false, kTile = false;
   int M, N, nkt, nq, extra;
   Args<T> a;
   int P0;

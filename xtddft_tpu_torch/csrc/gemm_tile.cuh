@@ -1,4 +1,5 @@
-// The GEMM tile core shared by K1 `df_exchange` and K3 `grid_back`.
+// The GEMM tile core shared by K1 `df_exchange`, K2 `grid_rho1` and K3
+// `grid_back`.
 //
 // One thread block computes a BM x BN tile of
 //
@@ -38,6 +39,13 @@
 //   come in both orientations; `cp.async` takes them all.
 // - Split-K: a launch may cut the step range of one output tile across
 //   blocks; such problems add their tile into a zeroed output with atomics.
+// - Tile epilogues: a problem may take the whole accumulator tile at once
+//   (kTile) instead of one element at a time; `dot_groups` contracts it
+//   with a table tile in shared memory over groups of RG rows (K2 reduces
+//   C over the orbital index of its rows that way).  In f32 a group is the
+//   thread's own 4 rows; in f64 it is the 8 rows of a lane pair, which a
+//   row permutation (`perm`) makes consecutive, so that a group costs one
+//   shuffle, not one per element.
 
 #pragma once
 
@@ -111,14 +119,19 @@ struct Cfg<double> {
   static constexpr int KRUN = 4;
 };
 
-template <typename T, int BK_, int NS_, int STAGES_, int BL_ = KMAJOR>
+// PERM_ (f64 only; K2): the tile's accumulator row p holds row perm(p) of
+// the A tile (see perm), so that a lane pair holds 8 consecutive rows.
+template <typename T, int BK_, int NS_, int STAGES_, int BL_ = KMAJOR, bool PERM_ = false>
 struct Core {
   using Elem = T;
   using C = Cfg<T>;
   static constexpr int BM = C::BM, BN = C::BN, NT = C::NT, BK = BK_, NS = NS_;
   static constexpr int STAGES = STAGES_, BL = BL_;
+  static constexpr bool PERM = PERM_ && sizeof(T) == 8;
   static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int LDA = BM + C::PAD;
+  // PERM: (16k + 2r') % 32 over the permuted fragment rows r', two
+  // wavefronts a fragment load as without it
+  static constexpr int LDA = BM + (PERM ? 2 : C::PAD);
   static constexpr int LDB = BL == KMAJOR ? BN + C::PAD : BK + C::PADK;
   static constexpr int A_SLICE = BK * LDA;
   static constexpr int B_SLICE = BL == KMAJOR ? BK * LDB : BN * LDB;
@@ -129,6 +142,24 @@ struct Core {
 
   // the thread's share of the C tile
   static constexpr int ACC = sizeof(T) == 4 ? 64 : BM / 2;
+  // dot_groups: the logical rows of group q are RG * q .. RG * q + RG - 1
+  static constexpr int RG = sizeof(T) == 4 ? 4 : 8, NG = BM / RG;
+
+  // the row of A (and of the problem's epilogue tables) that accumulator
+  // row p of the tile holds.  PERM: within each 32 rows, p = 8h + g (the
+  // h-th row of lane group g) holds 8(g / 2) + 2h + g % 2, so a lane pair
+  // (g, g + 1) holds 8 consecutive rows of A; perm is its own inverse.  A
+  // is copied in its own order and its f64 fragments are loaded through
+  // perm; copying it permuted instead made K2's f64 GEMMs up to 1.6x slower
+  // on the H100 (PERF.md).  Else the identity.
+  static __device__ __forceinline__ int perm(int p) {
+    if constexpr (PERM) {
+      const int h = (p >> 3) & 3, g = p & 7;
+      return (p & ~31) | (8 * (g >> 1) + 2 * h + (g & 1));
+    } else {
+      return p;
+    }
+  }
 
   // Copy a ROWS x BK operand tile stored with layout L (KMAJOR:
   // dst[k * LD + r], the rows are contiguous in device memory; NMAJOR:
@@ -187,6 +218,14 @@ struct Core {
   // fn(r, c, value) for every accumulator, r < BM and c < BN tile-local
   template <class Fn>
   static __device__ __forceinline__ void for_each(const T (&acc)[ACC], Fn fn);
+
+  // fn(q, c, sum over the physical rows p of group q of C[p, c] w[c * LDW + p])
+  // for every (q, c) of the tile, each from exactly one thread, where group q
+  // holds the rows p with perm(p) / RG == q.  w is a [BN][LDW] tile in
+  // shared memory (LDW a multiple of the vector width).  Every thread of the
+  // block must call it: f64 sums a group across a lane pair with a shuffle.
+  template <int LDW, class Fn>
+  static __device__ __forceinline__ void dot_groups(const T (&acc)[ACC], const T* w, Fn fn);
 };
 
 namespace detail {
@@ -253,12 +292,17 @@ __device__ __forceinline__ void dmma_16808(double* c, const double (&a)[4], cons
 // A[g + 8(e%2)][t + 4(e/2)] (e < 4), B[t + 4e][g] (e < 2), and of mma tile
 // (i, j) the C entries at row 16(MI wm + i) + g + 8(e/2), column
 // 32wn + 8j + 2t + e%2: acc[4 * (4i + j) + e].
+// PERM (MI = 2): accumulator row 16(MI wm + i) + g + 8(e/2) = 32 wm + 8h + g
+// (h = 2i + e/2) reads A row 32 wm + 8(g/2) + g%2 + 2h (`Core::perm`).
 template <int MI, int BK, int NS, int LDA, int LDB, int A_SLICE, int B_SLICE, int A_ELEMS,
-          int BL>
+          int BL, bool PERM>
 __device__ __forceinline__ void dmma_warp(const double* stage, double (&acc)[16 * MI]) {
+  static_assert(!PERM || MI == 2, "a warp's rows are one 32-row block of the permutation");
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int rm = 16 * MI * (w & 1) + g, rn = 32 * (w >> 1) + g;
+  const int rm = 16 * MI * (w & 1) + (PERM ? 8 * (g >> 1) + (g & 1) : g);
+  const int rn = 32 * (w >> 1) + g;
+  constexpr int RI = PERM ? 4 : 16, RE = PERM ? 2 : 8;  // row steps of i and e % 2
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     const double* As = stage + s * A_SLICE;
@@ -270,7 +314,7 @@ __device__ __forceinline__ void dmma_warp(const double* stage, double (&acc)[16 
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          a[i][e] = As[(k0 + t + 4 * (e >> 1)) * LDA + rm + 16 * i + 8 * (e & 1)];
+          a[i][e] = As[(k0 + t + 4 * (e >> 1)) * LDA + rm + RI * i + RE * (e & 1)];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -288,20 +332,20 @@ __device__ __forceinline__ void dmma_warp(const double* stage, double (&acc)[16 
 
 }  // namespace detail
 
-template <typename T_, int BK_, int NS_, int ST_, int BL_>
-__device__ __forceinline__ void Core<T_, BK_, NS_, ST_, BL_>::multiply(const T_* stage,
-                                                                       T_ (&acc)[ACC]) {
+template <typename T_, int BK_, int NS_, int ST_, int BL_, bool PM_>
+__device__ __forceinline__ void Core<T_, BK_, NS_, ST_, BL_, PM_>::multiply(const T_* stage,
+                                                                            T_ (&acc)[ACC]) {
   if constexpr (sizeof(T_) == 4) {
     detail::fma_8x8<BK, NS, LDA, LDB, A_SLICE, B_SLICE, A_ELEMS, BL>(stage, acc);
   } else {
-    detail::dmma_warp<BM / 32, BK, NS, LDA, LDB, A_SLICE, B_SLICE, A_ELEMS, BL>(stage, acc);
+    detail::dmma_warp<BM / 32, BK, NS, LDA, LDB, A_SLICE, B_SLICE, A_ELEMS, BL, PERM>(stage, acc);
   }
 }
 
-template <typename T_, int BK_, int NS_, int ST_, int BL_>
+template <typename T_, int BK_, int NS_, int ST_, int BL_, bool PM_>
 template <class Fn>
-__device__ __forceinline__ void Core<T_, BK_, NS_, ST_, BL_>::for_each(const T_ (&acc)[ACC],
-                                                                       Fn fn) {
+__device__ __forceinline__ void Core<T_, BK_, NS_, ST_, BL_, PM_>::for_each(const T_ (&acc)[ACC],
+                                                                            Fn fn) {
   if constexpr (sizeof(T_) == 4) {
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
@@ -324,6 +368,46 @@ __device__ __forceinline__ void Core<T_, BK_, NS_, ST_, BL_>::for_each(const T_ 
   }
 }
 
+template <typename T_, int BK_, int NS_, int ST_, int BL_, bool PM_>
+template <int LDW, class Fn>
+__device__ __forceinline__ void Core<T_, BK_, NS_, ST_, BL_, PM_>::dot_groups(
+    const T_ (&acc)[ACC], const T_* w, Fn fn) {
+  static_assert(LDW % VEC == 0, "vector loads of w");
+  if constexpr (sizeof(T_) == 4) {
+    // the thread's rows 4ty..4ty+3 and 64+4ty..: groups ty and 16 + ty
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = BL == KMAJOR ? 4 * tx + (j & 3) + 64 * (j >> 2) : tx + 16 * j;
+        const float4 v = *reinterpret_cast<const float4*>(w + c * LDW + 4 * ty + 64 * h);
+        const float* a = acc + 32 * h + j;
+        fn(ty + 16 * h, c, a[0] * v.x + a[8] * v.y + a[16] * v.z + a[24] * v.w);
+      }
+  } else {
+    // the thread's rows base + 8h + g (h = 2i + e / 2) are 4 of its group's
+    // 8; lane (4g + t) ^ 4 holds the other 4
+    static_assert(PERM, "f64 groups need the row permutation (Core's PERM_)");
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3, base = BM / 2 * (wp & 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = 32 * (wp >> 1) + 8 * j + 2 * t + e1;
+        T_ s = T_(0);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2)
+            s += acc[4 * (4 * i + j) + 2 * e2 + e1] * w[c * LDW + base + 16 * i + 8 * e2 + g];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        if ((g & 1) == 0) fn(base / 8 + (g >> 1), c, s);
+      }
+  }
+}
+
 // ---- the block's main loop ---------------------------------------------------
 //
 // A problem type Prob provides
@@ -333,7 +417,10 @@ __device__ __forceinline__ void Core<T_, BK_, NS_, ST_, BL_>::for_each(const T_ 
 //   after the A and B slices);
 //   load(stage, q, kt, m0, n0): issue the cp.async copies of one step;
 //   transform(stage, q, kt, m0): the in-place rewrite (kTransform only);
-//   store(q, m, n, v): the epilogue of one element (m < M, n < N).
+//   store(q, m, n, v): the epilogue of one element (m < M, n < N);
+//   kTile (with kReduce): the epilogue takes the whole tile instead,
+//   finish(acc, smem, m0, n0) once the block's steps are summed, with the
+//   block's shared memory, at least `epi` elements of it.
 //
 // The block owns the output tile (m0, n0) and the steps [s0, s1) of the
 // flattened (q, kt) range.  Without kReduce, [s0, s1) holds whole q's
@@ -380,7 +467,10 @@ __device__ __forceinline__ void run_tile(const Prob& p, int m0, int n0, int s0, 
     }
   }
   cp_async_wait<0>();
-  if constexpr (Prob::kReduce) {
+  if constexpr (Prob::kTile) {
+    __syncthreads();  // the last stage is no longer read
+    p.finish(acc, smem, m0, n0);
+  } else if constexpr (Prob::kReduce) {
     Core::for_each(acc, [&](int r, int c, T v) {
       if (m0 + r < p.M && n0 + c < p.N) p.store(0, m0 + r, n0 + c, v);
     });
@@ -414,8 +504,9 @@ __global__ void __launch_bounds__(Core::NT, sizeof(typename Core::Elem) == 4 ? 2
 template <class Core, class Prob>
 cudaError_t launch(const Prob& p, cudaStream_t stream) {
   const auto kern = gemm_kernel<Core, Prob>;
-  const size_t smem =
-      sizeof(typename Prob::T) * (size_t)Core::STAGES * (Core::AB_ELEMS + p.extra);
+  size_t elems = (size_t)Core::STAGES * (Core::AB_ELEMS + p.extra);
+  if constexpr (Prob::kTile) elems = std::max(elems, (size_t)p.epi);
+  const size_t smem = sizeof(typename Prob::T) * elems;
   struct Fit {
     int dev = -1;
     size_t smem = 0;

@@ -62,7 +62,7 @@ namespace {
 template <class Core, int NC>
 struct GridBack {
   using T = typename Core::Elem;
-  static constexpr bool kReduce = true, kTransform = true;
+  static constexpr bool kReduce = true, kTransform = true, kTile = false;
   static constexpr int BK = Core::BK;
   int M, N, nkt, nq, extra;
   const T* dwv;

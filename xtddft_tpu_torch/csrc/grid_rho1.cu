@@ -6,162 +6,268 @@
 // :1105-1120), which compute with po_c = phi_o[c, g, o0 + .] and
 // pv_c = phi_v[c, g, v0 + .] (c = value, d/dx, d/dy, d/dz of the MOs on the
 // grid; phi_v is phi_o's table for a spin-conserving block, the other spin's
-// for a spin-flip block of a UKS reference):
+// for a spin-flip block of a UKS reference; the o and v ranges may overlap):
 //
-//   s_c[x, g, o] = sum_v z[x, o, v] pv_c[g, v]
-//   rho1[x, 0, g]   = sum_o s_0[x,g,o] po_0[g, o]
-//   rho1[x, y, g]   = sum_o s_0[x,g,o] po_y[g, o] + s_y[x,g,o] po_0[g, o]
+//   rho1[x, 0, g] = sum_ov z[x, o, v] po_0[g, o] pv_0[g, v]
+//   rho1[x, y, g] = sum_ov z[x, o, v] (po_y[g, o] pv_0[g, v] + po_0[g, o] pv_y[g, v])
 //
 // masked to zero where the ground-state density is negligible (no mask: the
 // spin-flip kernel that multiplies rho1 next is itself zero there).  NC = 4
 // gives all four rows (GGA, multicollinear SF kernel); NC = 1 the value row
-// alone (the ALDA0 SF kernel), a quarter of the multiply-adds.
+// alone (the ALDA0 SF kernel).
 //
-// What bounds it on an H100: flops, at least 2*2*nocc*nvir per vector and
-// point with the gradient (`response/flops.py`: tmp = z pv_0 and u = z^T po_0
-// give every gradient term; this kernel forms all four s_c, twice that),
-// 2*nocc*nvir without, and the reads of phi.  The JAX code
-// materializes tmp[x, g, o] and tmp2[x, y, g, o] in HBM; here s_c stays in
-// registers.  One block owns (vector x, 32 grid points, 32 occupied rows):
-// it streams 32-wide chunks of v through shared memory, accumulates
-// s_c for its rows in registers, then contracts with phi(o) and reduces
-// across its warps; blocks of the other occupied tiles add into the zeroed
-// output with atomics.  Simple first version: plain FMAs, no tensor cores;
-// it re-reads the phi chunk once per (vector, occupied tile), which is what
-// costs it at nmo=1000 (times in PERF.md).
+// Bound on an H100: flops, the GGA minimum of `response/flops.py`:
+//   tmp[x, o, g] = sum_v z[x, o, v] pv_0[g, v]   (2*nz*nocc*nvir per point)
+//   u[x, v, g]   = sum_o z[x, o, v] po_0[g, o]   (the same)
+// give every row, rho1_0 = sum_o tmp po_0, rho1_y = sum_o tmp po_y +
+// sum_v u pv_y, with a few multiply-adds per orbital besides (2.5e10 per
+// 4096-point chunk at the bench shape, 0.37 ms at 67 TFLOP/s); the value
+// row alone needs one of them and its dot with the table.  The JAX code
+// materializes tmp[x, g, o] and tmp2[x, y, g, o] in device memory; here
+// nothing of size nz*npts*norb leaves the chip.
+//
+// Design: the two GEMMs on the tile core of `gemm_tile.cuh`, each with its
+// contraction against the MO table in a tile epilogue:
+//   - tmp: M = rows (x, o), N = the points of the span, K = v, B = pv_0 read
+//     along its rows (n-major in shared memory); epilogue: rho1[x, c, g] +=
+//     sum_o tmp[x, o, g] po_c[g, o] for the gradient rows c = 1..3;
+//   - u: M = rows (x, v), N = points, K = o, B = po_0; epilogue:
+//     rho1[x, c, g] += sum_v u[x, v, g] pv_c[g, v], c = 1..3;
+//   - the value row c = 0 rides with the GEMM of fewer rows (u when nvir <
+//     nocc, as at TTM; tmp at the bench width), since the epilogue's cost
+//     goes with M; the value row alone is that one GEMM.
+// An epilogue streams one component at a time: it copies the table tile
+// T_c[g, orbital of row] of its BN points and BM rows into shared memory,
+// sums C * T_c over groups of rows (`dot_groups`: a thread's 4 rows in f32,
+// a lane pair's 8 in f64, which the core's row permutation makes
+// consecutive), then each thread walks the groups of one point,
+// adding the sum of each trial vector's rows into the zeroed output with
+// one atomic (times the mask) when the vector changes; tiles of the other
+// rows and splits of the k range add likewise.  The next component's copy
+// flies during the walk.
+// The rows of each trial vector are padded to a multiple of the group (R),
+// so that no group and no 16-byte run crosses two vectors, and start at a
+// shifted orbital (the shift zero rows of A), so that the table's runs
+// along the orbital index start aligned; the same shift on k lets B's runs
+// start aligned.  The wrapper lays z out as both A operands (k-major, one
+// zero-padded copy each, small beside the tables).  Where a table's
+// strides rule out 16-byte runs (f32 with nmo 182), its copies go one
+// element at a time.  With K short (TTM: 46 for tmp, 137 for u) a block
+// runs a few k steps, then up to four epilogue components, each a copy
+// round trip and two barriers, and at TTM f64 the epilogue takes about
+// twice as long as the GEMM on the H100 (PERF.md); its table tile is read
+// once per row tile, so once per trial vector.
 //
 // Layout: phi_o and phi_v are any strided (>= NC, gc, nmo) views (strides
-// oc, og, om and vc, vg, vm); z is contiguous (nz, nocc, nvir); mask (gc,)
-// holds 0/1 in the working type, or is null; out (nz, NC, gc) is
-// accumulated (the caller zeroes it).  Launches on the caller's stream,
-// allocates nothing, returns cudaGetLastError().
+// oc, og, om and vc, vg, vm); za (for tmp, else null) is [sv + nvir][nz *
+// ra] with za[sv + v][x * ra + so + o] = z[x, o, v] and zeros elsewhere; zb
+// (for u, else null) is [so + nocc][nz * rb] with zb[so + o][x * rb + sv +
+// v] = z[x, o, v]; ra >= so + nocc and rb >= sv + nvir are multiples of the
+// row group (4 in f32, 8 in f64), so <= o0 and sv <= v0 the shifts; vu puts
+// the value row on u; mask (gc,) holds 0/1 in the working type, or is null;
+// out (nz, NC, gc) is accumulated (the caller zeroes it).  Launches on the
+// caller's stream, allocates nothing, returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int TG = 32;     // grid points per block, one per lane
-constexpr int TO = 32;     // occupied rows per block
-constexpr int NWARP = 8;   // a thread owns rows warp + NWARP*r, r < TO/NWARP
-constexpr int RO = TO / NWARP;
-constexpr int VK = 32;     // contraction chunk over v
+// One of the two GEMMs.  Row m = x * R + i of A stands for orbital i of
+// the epilogue's table from E (rows i >= nrow are zero, as are the leading
+// shift rows, whose orbitals the table holds all the same); k for column k
+// of B's table row from Bt.  Accumulator row p of a tile holds row
+// m0 + Core::perm(p), and the table tile's row p is that row's orbital.
+template <class Core, int NE>
+struct Rho1Gemm {
+  using T = typename Core::Elem;
+  static constexpr bool kReduce = true, kTransform = false, kTile = true;
+  static constexpr int BM = Core::BM, BN = Core::BN, NT = Core::NT, V = Core::VEC;
+  static constexpr int RG = Core::RG, NG = Core::NG;
+  static constexpr int LDT = BM + V;                    // table tile [n][LDT]
+  static constexpr int LDR = BN + 64 / (int)sizeof(T);  // group sums [q][LDR]
+  // shared memory of the epilogue, over the stages' (which the GEMM no
+  // longer reads): one table tile and the group sums.  A second table tile
+  // (f64, whose blocks have room for it) to copy the next component into
+  // during the whole of this one's work, or the next tile's first component
+  // during the GEMM, ran no faster on the H100 (PERF.md).
+  static constexpr int EPI = BN * LDT + NG * LDR;
+  static_assert(NT == 2 * BN && NG % 2 == 0, "two threads per point in the walk");
+  static_assert(NT % BM == 0, "a thread copies table entries of one row");
+  int M, N, nkt, nq, extra, epi;
+  const T* A;  // [K][lda]
+  int lda, K;
+  const T* Bt;  // B(k, n) = Bt[n * bg + k * bk]
+  int64_t bg, bk;
+  const T* E;  // table c of the epilogue at E[c * ec + n * eg + i * em]
+  int64_t ec, eg, em;
+  int R, nrow, nz, ncomp, c0;  // output rows c0 .. c0 + NE - 1 of ncomp
+  bool vecA, vecB, vecE;
+  const T* mask;
+  T* out;
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(NWARP * 32)
-grid_rho1_kernel(const T* __restrict__ phio, int64_t oc, int64_t og, int64_t om,
-                 const T* __restrict__ phiv, int64_t vc, int64_t vg, int64_t vm, int gc,
-                 const T* __restrict__ z, int nocc, int nvir, int o0, int v0,
-                 const T* __restrict__ mask, T* __restrict__ out) {
-  __shared__ T Zs[TO][VK + 1];       // z chunk [o][k]; reused for the warp reduction
-  __shared__ T Ps[NC][VK][TG + 1];   // pv_c[g, v] chunk as [c][k][g]; reused for po_c[g, o]
+  __device__ void load(T* stage, int, int kt, int m0, int n0) const {
+    const int k0 = kt * Core::BK, M_ = M, N_ = N, K_ = K, lda_ = lda;
+    const T* A_ = A;
+    const T* B_ = Bt;
+    const int64_t bg_ = bg, bk_ = bk;
+    Core::template copy<gt::KMAJOR, BM, Core::LDA>(
+        stage, vecA, A_, [&](int r, int k, int w) -> gt::Run<T> {
+          const int m = m0 + r, kk = k0 + k;
+          return {A_ + (int64_t)kk * lda_ + m, kk < K_ ? max(0, min(w, M_ - m)) : 0};
+        });
+    Core::template copy<gt::NMAJOR, BN, Core::LDB>(
+        stage + Core::A_ELEMS, vecB, B_, [&](int r, int k, int w) -> gt::Run<T> {
+          const int n = n0 + r, kk = k0 + k;
+          return {B_ + (int64_t)n * bg_ + (int64_t)kk * bk_,
+                  n < N_ ? max(0, min(w, K_ - kk)) : 0};
+        });
+  }
 
-  const int x = blockIdx.x;
-  const int g0 = blockIdx.y * TG;
-  const int ot = blockIdx.z * TO;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const T* zx = z + (int64_t)x * nocc * nvir;
-
-  T acc[NC][RO];
+  // T_c[n][p] = E_c[n0 + n, orbital of tile row p], zero past the real rows.
+  // Every copy of a thread falls on one tile row p (and run), whose orbital
+  // i and real length cnt (0: no real orbital) the caller worked out; the
+  // threads of a warp read consecutive runs, as in Core::copy.
+  __device__ void load_table(T* ts, int c, int n0, int p, int i, int cnt) const {
+    const T* src = E + c * ec + (int64_t)i * em;
+    const int64_t eg_ = eg;
+    const int N_ = N;
+    constexpr int W = BM / V;  // 16-byte runs per table row
+    if (vecE) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int r = 0; r < RO; ++r) acc[c][r] = T(0);
-
-  for (int vb = 0; vb < nvir; vb += VK) {
-    for (int idx = threadIdx.x; idx < TO * VK; idx += blockDim.x) {
-      const int oo = idx / VK;
-      const int k = idx - oo * VK;
-      const int o = ot + oo;
-      const int v = vb + k;
-      Zs[oo][k] = (o < nocc && v < nvir) ? zx[(int64_t)o * nvir + v] : T(0);
-    }
-    for (int idx = threadIdx.x; idx < NC * TG * VK; idx += blockDim.x) {
-      const int c = idx / (TG * VK);
-      const int rem = idx - c * (TG * VK);
-      const int gg = rem / VK;
-      const int k = rem - gg * VK;
-      const int g = g0 + gg;
-      const int v = vb + k;
-      Ps[c][k][gg] = (g < gc && v < nvir)
-                         ? phiv[(int64_t)c * vc + (int64_t)g * vg + (int64_t)(v0 + v) * vm]
-                         : T(0);
-    }
-    __syncthreads();
+      for (int it = 0; it < BN * W / NT; ++it) {
+        const int n = (threadIdx.x + it * NT) / W;
+        const int k = n0 + n < N_ ? cnt : 0;
+        gt::cp_async_16(ts + n * LDT + p, k > 0 ? src + (n0 + n) * eg_ : E, k);
+      }
+    } else {
 #pragma unroll 4
-    for (int k = 0; k < VK; ++k) {
-      T zr[RO];
-#pragma unroll
-      for (int r = 0; r < RO; ++r) zr[r] = Zs[warp + NWARP * r][k];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const T p = Ps[c][k][lane];
-#pragma unroll
-        for (int r = 0; r < RO; ++r) acc[c][r] += zr[r] * p;
+      for (int it = 0; it < BN * BM / NT; ++it) {
+        const int n = (threadIdx.x + it * NT) / BM;
+        const int k = n0 + n < N_ ? cnt : 0;
+        gt::cp_async_elem(ts + n * LDT + p, k > 0 ? src + (n0 + n) * eg_ : E, k);
       }
     }
-    __syncthreads();
+    gt::cp_async_commit();
   }
 
-  // po_c[g, o0+o] for this block's rows, into the Ps buffer as [c][oo][g]
-  for (int idx = threadIdx.x; idx < NC * TG * TO; idx += blockDim.x) {
-    const int c = idx / (TG * TO);
-    const int rem = idx - c * (TG * TO);
-    const int gg = rem / TO;
-    const int oo = rem - gg * TO;
-    const int g = g0 + gg;
-    const int o = ot + oo;
-    Ps[c][oo][gg] = (g < gc && o < nocc)
-                        ? phio[(int64_t)c * oc + (int64_t)g * og + (int64_t)(o0 + o) * om]
-                        : T(0);
-  }
-  __syncthreads();
-
-  T part[NC];
-#pragma unroll
-  for (int q = 0; q < NC; ++q) part[q] = T(0);
-#pragma unroll
-  for (int r = 0; r < RO; ++r) {
-    const int oo = warp + NWARP * r;
-    const T p0 = Ps[0][oo][lane];
-    part[0] += acc[0][r] * p0;
-#pragma unroll
-    for (int y = 1; y < NC; ++y) part[y] += acc[0][r] * Ps[y][oo][lane] + acc[y][r] * p0;
+  // the thread's table row (a run of V rows, or one row): its tile row p,
+  // its orbital i and its real length cnt
+  __device__ void table_row(int m0, int& p, int& i, int& cnt) const {
+    const int r = vecE ? threadIdx.x % (BM / V) * V : threadIdx.x % BM;  // logical
+    p = Core::perm(r);
+    const int m = m0 + r, x = m / R;
+    i = m - x * R;
+    cnt = x < nz ? max(0, min(vecE ? V : 1, nrow - i)) : 0;
   }
 
-  // reduce the NWARP partial sums of each point through shared memory
-  T* red = &Zs[0][0];  // NWARP * NC * TG <= TO * (VK + 1) elements
-#pragma unroll
-  for (int q = 0; q < NC; ++q) red[(warp * NC + q) * TG + lane] = part[q];
-  __syncthreads();
-  if (warp == 0 && g0 + lane < gc) {
-    const T m = mask != nullptr ? mask[g0 + lane] : T(1);
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
+  __device__ void finish(const T (&acc)[Core::ACC], T* smem, int m0, int n0) const {
+    T* red = smem + BN * LDT;
+    int p, i, cnt;
+    table_row(m0, p, i, cnt);
+    // the walk: thread (n, half) sums groups half * NG/2 .. of point n0 + n;
+    // vectors change every R / RG groups, first after nb of them
+    constexpr int QH = NG / 2;
+    const int n = threadIdx.x % BN, half = threadIdx.x / BN;
+    const bool live = n0 + n < N;
+    const T mk = live && mask != nullptr ? mask[n0 + n] : T(1);
+    const int gpv = R / RG, q0 = m0 / RG + half * QH;
+    const int x0 = q0 / gpv, nb0 = (x0 + 1) * gpv - q0;
+    load_table(smem, 0, n0, p, i, cnt);
+#pragma unroll 1
+    for (int c = 0; c < NE; ++c) {
+      gt::cp_async_wait<0>();
+      __syncthreads();  // T_c landed; the last walk no longer reads red
+      Core::template dot_groups<LDT>(acc, smem, [&](int q, int cc, T s) { red[q * LDR + cc] = s; });
+      __syncthreads();  // red complete; the table tile free
+      if (c + 1 < NE) load_table(smem, c + 1, n0, p, i, cnt);
+      if (!live) continue;
+      T* o = out + (int64_t)(c0 + c) * N + n0 + n;
+      const int64_t xs = (int64_t)ncomp * N;
+      int x = x0, nb = nb0;
       T s = T(0);
-      for (int w = 0; w < NWARP; ++w) s += red[(w * NC + q) * TG + lane];
-      atomicAdd(&out[((int64_t)x * NC + q) * gc + g0 + lane], s * m);
+#pragma unroll
+      for (int j = 0; j < QH; ++j) {
+        if (j == nb) {
+          if (x < nz) atomicAdd(o + x * xs, s * mk);
+          ++x;
+          nb += gpv;
+          s = T(0);
+        }
+        s += red[(half * QH + j) * LDR + n];
+      }
+      if (x < nz) atomicAdd(o + x * xs, s * mk);
     }
   }
+};
+
+template <typename T, int NE>
+cudaError_t launch_gemm(const T* A, int lda, int K, int M, int N, const T* Bt, int64_t bg,
+                        int64_t bk, const T* E, int64_t ec, int64_t eg, int64_t em, int R,
+                        int nrow, int nz, int ncomp, int c0, const T* mask, T* out,
+                        cudaStream_t stream) {
+  using Core = gt::Core<T, 16, 1, 3, gt::NMAJOR, true>;
+  using P = Rho1Gemm<Core, NE>;
+  // 16-byte runs: A along its rows, B along k, the table along the orbitals
+  const bool vecA = gt::aligned16(A, {lda});
+  const bool vecB = bk == 1 && gt::aligned16(Bt, {bg});
+  const bool vecE = em == 1 && gt::aligned16(E, {eg, ec});
+  const P p{M, N, (K + Core::BK - 1) / Core::BK, 1, 0, P::EPI, A, lda, K, Bt, bg, bk, E, ec, eg,
+            em, R, nrow, nz, ncomp, c0, vecA, vecB, vecE, mask, out};
+  return gt::launch<Core>(p, stream);
 }
 
+// the GEMM of one A operand, its epilogue over ne = 1, 3 or 4 table components
 template <typename T>
-int launch(const T* phio, long long oc, long long og, long long om, const T* phiv,
-           long long vc, long long vg, long long vm, int gc, const T* z, int nz, int nocc,
-           int nvir, int o0, int v0, int ncomp, const T* mask, T* out, void* stream) {
-  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 || (ncomp != 1 && ncomp != 4))
+cudaError_t launch_side(int ne, const T* A, int lda, int K, const T* Bt, int64_t bg, int64_t bk,
+                        const T* E, int64_t ec, int64_t eg, int64_t em, int R, int nrow, int gc,
+                        int nz, int ncomp, int c0, const T* mask, T* out, cudaStream_t stream) {
+  const int M = nz * R;
+  if (ne == 1)
+    return launch_gemm<T, 1>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
+                             mask, out, stream);
+  if (ne == 3)
+    return launch_gemm<T, 3>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
+                             mask, out, stream);
+  return launch_gemm<T, 4>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
+                           mask, out, stream);
+}
+
+// One GEMM per operand given: za gives tmp (rows x * ra + i <-> po_c[.,
+// o0 - so + i], k over the columns v0 - sv .. of pv_0), zb gives u (rows
+// x * rb + i <-> pv_c[., v0 - sv + i], k over the columns o0 - so .. of
+// po_0).  The value row rides with u when vu, else with tmp; the gradient
+// rows with both.
+template <typename T>
+int launch(const T* phio, long long oc, long long og, long long om, const T* phiv, long long vc,
+           long long vg, long long vm, int gc, const T* za, int ra, const T* zb, int rb, int so,
+           int sv, int nz, int nocc, int nvir, int o0, int v0, int ncomp, int vu, const T* mask,
+           T* out, void* stream) {
+  constexpr int RG = gt::Core<T, 16, 1, 3, gt::NMAJOR, true>::RG;
+  const bool tmp = ncomp == 4 || !vu, u = ncomp == 4 || vu;
+  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 || (ncomp != 1 && ncomp != 4) ||
+      so < 0 || so > o0 || sv < 0 || sv > v0 ||
+      (tmp && (za == nullptr || ra % RG != 0 || ra < so + nocc)) ||
+      (u && (zb == nullptr || rb % RG != 0 || rb < sv + nvir)) ||
+      (int64_t)nz * std::max(tmp ? ra : 0, u ? rb : 0) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(nz, (gc + TG - 1) / TG, (nocc + TO - 1) / TO);
-  if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (ncomp == 4)
-    grid_rho1_kernel<T, 4><<<grid, NWARP * 32, 0, st>>>(phio, oc, og, om, phiv, vc, vg, vm, gc,
-                                                        z, nocc, nvir, o0, v0, mask, out);
-  else
-    grid_rho1_kernel<T, 1><<<grid, NWARP * 32, 0, st>>>(phio, oc, og, om, phiv, vc, vg, vm, gc,
-                                                        z, nocc, nvir, o0, v0, mask, out);
-  return (int)cudaGetLastError();
+  const T* po = phio + (o0 - so) * om;
+  const T* pv = phiv + (v0 - sv) * vm;
+  cudaError_t err = cudaSuccess;
+  if (tmp) {
+    const int y0 = vu ? 1 : 0;  // the first table component of the epilogue
+    err = launch_side<T>(ncomp - y0, za, nz * ra, sv + nvir, pv, vg, vm, po + y0 * oc, oc, og, om,
+                         ra, so + nocc, gc, nz, ncomp, y0, mask, out, st);
+  }
+  if (u && err == cudaSuccess) {
+    const int y0 = vu ? 0 : 1;
+    err = launch_side<T>(ncomp - y0, zb, nz * rb, so + nocc, po, og, om, pv + y0 * vc, vc, vg, vm,
+                         rb, sv + nvir, gc, nz, ncomp, y0, mask, out, st);
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -170,18 +276,19 @@ extern "C" {
 
 int grid_rho1_f64(const double* phio, long long oc, long long og, long long om,
                   const double* phiv, long long vc, long long vg, long long vm, int gc,
-                  const double* z, int nz, int nocc, int nvir, int o0, int v0, int ncomp,
-                  const double* mask, double* out, void* stream) {
-  return launch<double>(phio, oc, og, om, phiv, vc, vg, vm, gc, z, nz, nocc, nvir, o0, v0,
-                        ncomp, mask, out, stream);
+                  const double* za, int ra, const double* zb, int rb, int so, int sv, int nz,
+                  int nocc, int nvir, int o0, int v0, int ncomp, int vu, const double* mask,
+                  double* out, void* stream) {
+  return launch<double>(phio, oc, og, om, phiv, vc, vg, vm, gc, za, ra, zb, rb, so, sv, nz, nocc,
+                        nvir, o0, v0, ncomp, vu, mask, out, stream);
 }
 
-int grid_rho1_f32(const float* phio, long long oc, long long og, long long om,
-                  const float* phiv, long long vc, long long vg, long long vm, int gc,
-                  const float* z, int nz, int nocc, int nvir, int o0, int v0, int ncomp,
-                  const float* mask, float* out, void* stream) {
-  return launch<float>(phio, oc, og, om, phiv, vc, vg, vm, gc, z, nz, nocc, nvir, o0, v0,
-                       ncomp, mask, out, stream);
+int grid_rho1_f32(const float* phio, long long oc, long long og, long long om, const float* phiv,
+                  long long vc, long long vg, long long vm, int gc, const float* za, int ra,
+                  const float* zb, int rb, int so, int sv, int nz, int nocc, int nvir, int o0,
+                  int v0, int ncomp, int vu, const float* mask, float* out, void* stream) {
+  return launch<float>(phio, oc, og, om, phiv, vc, vg, vm, gc, za, ra, zb, rb, so, sv, nz, nocc,
+                       nvir, o0, v0, ncomp, vu, mask, out, stream);
 }
 
 const char* xk_error_string(int code) {

@@ -3,7 +3,7 @@
 | kernel        | replaces (JAX package)                 | module        | design                                        |
 |---------------|----------------------------------------|---------------|-----------------------------------------------|
 | `df_exchange` | `response/sigma_df.py:399` `_jk`, `:821`/`:1066` the flip `_k` | `df_exchange` | two GEMMs on the tile core (`csrc/gemm_tile.cuh`) through an aux-chunked T buffer, plus a t reduction (skipped in the exchange-only flip mode; the virtual panel may come from a second tensor) |
-| `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1`, `:857`/`:1105` the flip transition density | `grid_rho1`   | one block per (vector, grid tile), tmp in registers; four components or the value alone; the virtual side may read a second table |
+| `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1`, `:857`/`:1105` the flip transition density | `grid_rho1`   | the two GEMMs of the GGA minimum (tmp = z pv_0, u = z^T po_0) on the tile core, each contracted with the MO table in a tile epilogue, one launch per point span; four components or the value alone (one GEMM: the one of fewer rows); second table likewise |
 | `grid_back`   | `response/sigma_df.py:525` `_fxc.back`, `:861`/`:1113` the flip back-projection | `grid_back`   | one GEMM on the tile core, F formed in shared memory, one launch per point span; four components or the value alone; second table likewise |
 
 The tile core runs f64 on the DMMA tensor cores (`mma.sync` m16n8k8) and
@@ -27,11 +27,15 @@ def reset_launch_counts() -> None:
 
 
 def build_all() -> None:
-    """Compile every kernel library (at first use this is what builds)."""
+    """Compile every kernel library (at first use this is what builds), one
+    compiler process per source, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from xtddft_tpu_torch.kernels import _cuda
 
-    for m in MODULES:
-        _cuda.load(m.NAME, m._ARGS)
+    with ThreadPoolExecutor(len(MODULES)) as pool:
+        for f in [pool.submit(_cuda.load, m.NAME, m._ARGS) for m in MODULES]:
+            f.result()
 
 
 __all__ = ["MODULES", "launch_counts", "reset_launch_counts", "build_all"]

@@ -4,12 +4,17 @@ Replaces `xtddft_tpu/response/sigma_df.py` `xtda_sigma_df._fxc.rho1`
 (:495-508) and the transition density of the spin-flip sigmas (:857-867,
 :1105-1120), where the virtual side may read a second MO table (``phi_v``:
 the other spin's, for a UKS reference) and the ALDA0 kernel needs the value
-row alone (``ncomp=1``).  The CUDA kernel (`csrc/grid_rho1.cu`) keeps the
-intermediate tmp[x, g, o] in registers and is bound by flops (at least
-2*2*nocc*nvir per vector and grid point with the gradient,
-`response/flops.py`; it does twice that; 2*nocc*nvir for the value alone);
-see the source for its design.  A CPU tensor takes the plain torch version
-below; a CUDA tensor launches the kernel or raises.
+row alone (``ncomp=1``).  The CUDA source (`csrc/grid_rho1.cu`) runs it as
+the two GEMMs of the GGA minimum on the tile core of `csrc/gemm_tile.cuh`:
+tmp = z . pv_0 (M = vectors x occupied rows, N = points, K = nvir) and
+u = z^T . po_0 (M = vectors x virtual rows, K = nocc), each contracted with
+the MO table in a tile epilogue, so nothing of size nz*npts*norb reaches
+device memory; the value row alone is one of them.  It is bound by flops:
+4*nz*nocc*nvir per grid point with the gradient, 2*nz*nocc*nvir for the
+value alone (`response/flops.py`), which it does.  A sigma calls it once
+per point span.  The wrapper lays z out as the GEMMs' A operands
+(`operands`).  A CPU tensor takes the plain torch version below; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,13 +27,51 @@ NAME = "grid_rho1"
 ROUTE = "cuda"
 SOURCE = "xtddft_tpu_torch/csrc/grid_rho1.cu"
 REPLACES = "xtddft_tpu/response/sigma_df.py:495"
-MAX_POINTS = 65535 * 32  # one launch's grid extent over the points
+# the kernel indexes points with 32-bit ints, a point tile of headroom kept
+MAX_POINTS = (1 << 31) - 256
 
 launches = 0
 
 _ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I,
-         _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P,
-         _cuda.P]
+         _cuda.P, _cuda.I, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
+         _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P]
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+# rows the kernel's tile epilogue sums at once, by element size: each trial
+# vector's rows are padded to a multiple of it
+_ROW_GROUP = {4: 4, 8: 8}
+
+
+def operands(z: torch.Tensor, o0: int, v0: int, ncomp: int):
+    """z (nz, nocc, nvir) laid out as the kernel's A operands, k-major:
+    za[sv + v, x, so + o] = z[x, o, v], of shape (sv + nvir, nz, ra), for
+    the GEMM tmp = z . pv_0, and zb[so + o, x, sv + v] = z[x, o, v], of
+    shape (so + nocc, nz, rb), for u = z^T . po_0; zero elsewhere.  The
+    shifts so = o0 % w and sv = v0 % w (w elements in 16 bytes) start the
+    tables' 16-byte runs on aligned columns; ra and rb pad each vector's rows
+    to a multiple of the epilogue's row group.  The value row goes with the
+    GEMM of fewer rows (``vu``: with u, when nvir < nocc), the gradient rows
+    with both, so the value row alone needs one operand and the other is
+    None (its row count 0).  Returns (so, sv, za, ra, zb, rb, vu)."""
+    nz, nocc, nvir = z.shape
+    w = 16 // z.element_size()
+    rg = _ROW_GROUP[z.element_size()]
+    so, sv = o0 % w, v0 % w
+    vu = nvir < nocc
+    za, ra, zb, rb = None, 0, None, 0
+    if ncomp == 4 or not vu:
+        ra = _round_up(so + nocc, rg)
+        za = torch.zeros((sv + nvir, nz, ra), dtype=z.dtype, device=z.device)
+        za[sv:, :, so:so + nocc] = z.permute(2, 0, 1)
+    if ncomp == 4 or vu:
+        rb = _round_up(sv + nvir, rg)
+        zb = torch.zeros((so + nocc, nz, rb), dtype=z.dtype, device=z.device)
+        zb[so:, :, sv:sv + nvir] = z.permute(1, 0, 2)
+    return so, sv, za, ra, zb, rb, vu
 
 
 def grid_rho1_plain(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
@@ -79,14 +122,15 @@ def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     if min(nz, nocc, nvir, gc) < 1 or gc > MAX_POINTS:
         raise ValueError(f"{NAME}: z {tuple(z.shape)} on {gc} points: an empty extent, "
                          f"or more than {MAX_POINTS} points in one launch")
-    z = z.contiguous()
+    so, sv, za, ra, zb, rb, vu = operands(z, o0, v0, ncomp)
     if mask is not None:
         mask = mask.contiguous()
     out = torch.zeros((nz, ncomp, gc), dtype=z.dtype, device=z.device)
     lib, fn = _cuda.entry(NAME, _ARGS, phi.dtype)
-    rc = fn(phi.data_ptr(), *phi.stride(), pv.data_ptr(), *pv.stride(), gc, z.data_ptr(),
-            nz, nocc, nvir, o0, v0, ncomp, None if mask is None else mask.data_ptr(),
-            out.data_ptr(), _cuda.stream())
+    rc = fn(phi.data_ptr(), *phi.stride(), pv.data_ptr(), *pv.stride(), gc,
+            None if za is None else za.data_ptr(), ra, None if zb is None else zb.data_ptr(), rb,
+            so, sv, nz, nocc, nvir, o0, v0, ncomp, int(vu),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), _cuda.stream())
     _cuda.check(lib, NAME, rc)
     launches += 1
     return out

@@ -36,7 +36,9 @@ from xtddft_tpu_torch.xc import interface as xci
 from xtddft_tpu_torch.xc import registry as xc_registry
 from xtddft_tpu_torch.xc.registry import XCSpec
 
-GRID_CHUNK = 4096  # grid points per K2 launch (K3: one launch per jvp group)
+# grid points per chunk: the unit of the jvp grouping and of the grid's
+# padding (K2 and K3 launch once per jvp group)
+GRID_CHUNK = 4096
 JVP_POINTS = 1 << 20  # (trial vectors x grid points) per fxc jvp call
 # (vectors x components x points) of rho1 per spin-flip grid span: 256 MiB of
 # r in f64 and as much of wv.  One span holds the whole grid up to 178 vectors
@@ -334,23 +336,20 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     dim = na + noccb * nvirb
 
     def _fxc(za, zb):
-        """Grid-chunked fxc response: rho1 on each grid chunk (K2), the
-        functional jvp per trial vector, back-projection to (o, v) (K3).
-        The jvp is pointwise, so it runs over a group of chunks at once:
-        each torch.func call dispatches hundreds of small operations,
-        whatever the number of points it covers.  K3 takes the group's
-        whole point span in one launch per spin."""
+        """Grid-chunked fxc response: rho1 (K2), the functional jvp per
+        trial vector, back-projection to (o, v) (K3).  The jvp is
+        pointwise, so it runs over a group of chunks at once: each
+        torch.func call dispatches hundreds of small operations, whatever
+        the number of points it covers.  K2 and K3 take the group's whole
+        point span in one launch per spin."""
         nz = za.shape[0]
         fxa = torch.zeros((nz, nocca, nvira), dtype=dt, device=dev)
         fxb = torch.zeros((nz, noccb, nvirb), dtype=dt, device=dev)
         group = max(1, JVP_POINTS // (nz * gc))
         for c0 in range(0, ngc, group):
-            chunks = [slice(c * gc, (c + 1) * gc) for c in range(c0, min(ngc, c0 + group))]
-            r1a = torch.cat([grid_rho1(phi_a[:, s], za, 0, nocca, mask_p[s])
-                             for s in chunks], dim=-1)
-            r1b = torch.cat([grid_rho1(phi_b[:, s], zb, 0, noccb, mask_p[s])
-                             for s in chunks], dim=-1)
-            span = slice(chunks[0].start, chunks[-1].stop)
+            span = slice(c0 * gc, min(ngc, c0 + group) * gc)
+            r1a = grid_rho1(phi_a[:, span], za, 0, nocca, mask_p[span])
+            r1b = grid_rho1(phi_b[:, span], zb, 0, noccb, mask_p[span])
             w_g = w_p[span]
             rho_g = tuple(r[..., span] for r in rho_p)
             dwva, dwvb, dwga, dwgb = torch.func.vmap(
