@@ -19,6 +19,11 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    the spin-flip modes (exchange-only K1, value-only and four-component K2
    and K3 on overlapping o/v ranges, one case with the virtual side on a
    second tensor and table) at the flip shapes of TTM and of the bench width;
+   then the SCF's AO modes at the TTM shapes (K1 on two density matrices
+   with o0 = v0 = 0 and nocc = nvir = nao, K2 hermitian, K3 with the AO table
+   on both sides, the whole grid in one launch), with ``library_ms`` the
+   single einsum of the exchange and of the density (four rows, and the
+   value row alone);
 3. the main path: X-TDA on the TTM radical (182 AO, ROKS/B3LYP, density
    fitted) through ``XTDA(load_mf(...), backend="df").kernel()`` in f64,
    gated against ``tests/data/golden_ttm.json``; every kernel must have
@@ -30,7 +35,17 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    ``tests/data/golden_ttm_flip.json``; every kernel must have launched;
 6. the flip leg at the bench width, f32: one ``xsf_sigma_df(SA=3)`` build
    against the plain path, seconds per build with the share of the
-   spin-adaptation terms, then a 10-root solve.
+   spin-adaptation terms, then a 10-root solve;
+7. the SCF on the Env of phase 3 (its grid and fitted tensors), f64: TTM
+   ``ROKS(Molecule(ttm_vacuum), xc="b3lyp", grid_level=1, df=True).kernel()``
+   from the GWH guess, gated against ``tests/data/ttm_ckpt.npz`` (the JAX
+   package's DF SCF: energy and occupied orbital energies), with cycles,
+   seconds and the kernel launches per cycle (every kernel must have
+   launched on each Fock build), then once more with the device
+   synchronized at each stage for the split of a cycle (the functional's
+   share is the ``xc`` stage less phase 2's K3 time in AO mode); then
+   ``XTDA(mf, nstates=10, backend="df")`` on that mean field, gated against
+   ``golden_ttm.json`` like phase 3.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -53,7 +68,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 F64_RTOL = 1e-11  # summation order differs from the plain version's
 F32_RTOL = 1e-4
+AO_RTOL = {"float64": 1e-12, "float32": 1e-5}  # the SCF's AO modes
 TTM_GATE_EV = 5e-3  # the JAX DF path's own gate (tests/test_production.py)
+SCF_GATE_HA = 1e-6  # TTM SCF energy against the JAX package's checkpoint
+SCF_GATE_EPS_HA = 1e-5  # occupied orbital energies against it
 
 
 def _log(*args):
@@ -287,6 +305,7 @@ def phase2() -> dict:
                        fl.grid_back_bytes(nz, n_o, n_v, npts, isz, ncomp), library=lib3)
             del phi, phi_v, pv, dwv, dwg, out, libs
             torch.cuda.empty_cache()
+        _ao_checks(checks, g, dtype)
         for label, nz, naux, nmo, no, nv in K1_EDGES:
             B = torch.randn((naux, nmo, nmo), generator=g, device="cuda", dtype=dtype)
             z = torch.randn((nz, no, nv), generator=g, device="cuda", dtype=dtype)
@@ -299,6 +318,76 @@ def phase2() -> dict:
                    lambda: torch.cat([x.flatten() for x in k1.df_exchange_plain(B, z, o0, v0)]),
                    False)
     return {"checks": checks}
+
+
+# the SCF's AO modes at TTM/STO-3G: (nao, naux, grid points), two density matrices
+AO_SHAPE = (182, 4412, 187644)
+# the JAX functions each kernel computes in the SCF's Fock build
+SCF_REPLACES = {"df_exchange": "xtddft_tpu/scf/env.py:244",
+                "grid_rho1": "xtddft_tpu/xc/interface.py:53",
+                "grid_back": "xtddft_tpu/xc/interface.py:112"}
+
+
+def _ao_checks(checks, g, dtype):
+    """The SCF's Fock build on the kernels at the TTM shapes: K1 in AO mode
+    (t and K of two density matrices; timed and held against the single
+    einsum on K, and checked untimed on (t, K)), K2 hermitian (four rows,
+    and the value row alone, each against its single einsum), K3 with the
+    AO table on both sides (no single call: a sum of three products)."""
+    from xtddft_tpu_torch.kernels import df_exchange as k1
+    from xtddft_tpu_torch.kernels import grid_back as k3
+    from xtddft_tpu_torch.kernels import grid_rho1 as k2
+    from xtddft_tpu_torch.response import flops as fl
+
+    nao, naux, npts = AO_SHAPE
+    nz = 2
+    dname = str(dtype).split(".")[-1]
+    isz = torch.empty((), dtype=dtype).element_size()
+    G = torch.randn((naux, nao, 8), generator=g, device="cuda", dtype=dtype)
+    B = torch.bmm(G, G.transpose(1, 2)) / (naux * nao * 8) ** 0.5
+    del G
+    c = torch.randn((nz, nao, 60), generator=g, device="cuda", dtype=dtype) / 60 ** 0.5
+    dms = c @ c.transpose(1, 2)  # symmetric, one per spin
+    del c
+
+    def rec(name, mode, **kw):
+        return {"kernel": name, "shape": "ttm_ao", "mode": mode, "dtype": dname, "nz": nz,
+                "nao": nao, "naux": naux, "rtol": AO_RTOL[dname], **kw}
+
+    _check(checks, rec(k1.NAME, "ao"), lambda: k1.df_exchange(B, dms, 0, 0)[1],
+           lambda: k1.df_exchange_plain(B, dms, 0, 0)[1], True,
+           fl.df_exchange_flops(naux, nz, nao, nao), fl.df_exchange_bytes(naux, nz, nao, nao, isz),
+           library=lambda: torch.einsum("Pmr,xrs,Psn->xmn", B, dms, B))
+    _check(checks, rec(k1.NAME, "ao_with_t"),
+           lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, dms, 0, 0)]),
+           lambda: torch.cat([x.flatten() for x in k1.df_exchange_plain(B, dms, 0, 0)]), False)
+    del B
+    torch.cuda.empty_cache()
+    ao = torch.randn((4, npts, nao), generator=g, device="cuda", dtype=dtype) / nao ** 0.5
+    wv = torch.randn((nz, 4, npts), generator=g, device="cuda", dtype=dtype)
+    dwv, dwg = wv[:, 0].contiguous(), wv[:, 1:4].contiguous()
+    del wv
+    nbytes = fl.grid_ao_bytes(nz, nao, npts, isz)
+    # for a symmetric D the gradient rows are 2 sum grad(phi) D phi
+    rows = torch.tensor([1.0, 2.0, 2.0, 2.0], device="cuda", dtype=dtype)
+    _check(checks, rec(k2.NAME, "hermi", gc=npts),
+           lambda: k2.grid_rho1(ao, dms, 0, 0, hermi=True),
+           lambda: k2.grid_rho1_plain(ao, dms, 0, 0, hermi=True), True,
+           fl.grid_ao_flops(nz, nao, npts), nbytes,
+           library=lambda: torch.einsum("c,cgi,xij,gj->xcg", rows, ao, dms, ao[0]))
+    _check(checks, rec(k2.NAME, "hermi_value_only", gc=npts),
+           lambda: k2.grid_rho1(ao, dms, 0, 0, ncomp=1, hermi=True),
+           lambda: k2.grid_rho1_plain(ao, dms, 0, 0, ncomp=1, hermi=True), True,
+           fl.grid_rho1_flops(nz, nao, nao, npts, 1),
+           fl.grid_rho1_bytes(nz, nao, nao, npts, isz, 1, masked=False),
+           library=lambda: torch.einsum("gi,xij,gj->xg", ao[0], dms, ao[0])[:, None])
+    out = torch.zeros((nz, nao, nao), device="cuda", dtype=dtype)
+    _check(checks, rec(k3.NAME, "ao", gc=npts),
+           lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_()).clone(),
+           lambda: k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.zero_()).clone(), True,
+           fl.grid_ao_flops(nz, nao, npts), nbytes)
+    del ao, dwv, dwg, out, dms
+    torch.cuda.empty_cache()
 
 
 def _first_fxc_jvp():
@@ -371,6 +460,100 @@ def phase3():
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     return rec, ref
+
+
+def phase7(mf0, e_phase3, k3_ms) -> dict:
+    """The SCF of the port on the Env of phase 3's mean field ``mf0`` (the
+    checkpoint's), f64, from the GWH guess, then X-TDA on its mean field;
+    both through the public entry points.  Also the energy of the
+    checkpoint's own density by the port's Fock build, which tells a
+    difference of densities from one of the energy expression.
+    ``k3_ms``: phase 2's time of K3 in AO mode, f64, which the ``xc``
+    stage (the functional and K3) holds once a cycle."""
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.chem import Molecule, geometries
+    from xtddft_tpu_torch.methods.drivers import XTDA
+    from xtddft_tpu_torch.response.flops import scf_veff_flops
+    from xtddft_tpu_torch.scf import ROKS
+
+    golden = json.loads((ROOT / "tests/data/golden_ttm.json").read_text())
+    ckpt = np.load(ROOT / "tests/data/ttm_ckpt.npz")
+    env = mf0.env
+    mol = Molecule.from_atoms(geometries.ttm_vacuum, basis="sto-3g", spin=1)
+    if mol != env.mol:
+        raise AssertionError("ttm_vacuum is not the molecule of tests/data/ttm_ckpt.npz")
+    scf = ROKS(mol, xc="b3lyp", grid_level=1, df=True, env=env)
+    kernels.reset_launch_counts()
+    s = time.perf_counter()
+    mf = scf.kernel()
+    _sync()
+    wall = time.perf_counter() - s
+    launches = kernels.launch_counts()
+    occ = np.asarray(ckpt["mo_occ"]) > 0
+    d_e = mf.e_tot - float(ckpt["e_tot"])
+    d_eps = float(np.abs(mf.mo_energy[occ] - np.asarray(ckpt["mo_energy"])[occ]).max())
+    n = scf.cycles
+    # the same SCF again, the device synchronized at each stage of a Fock
+    # build, for the split of a cycle; its cycle count may differ by a few:
+    # the kernels sum with atomics, and at 4814 Ha the energy test of 1e-11
+    # Ha sits at the rounding of those sums
+    scf.profile = True
+    s = time.perf_counter()
+    scf.kernel()
+    _sync()
+    wall_profiled = time.perf_counter() - s
+    n_prof = scf.cycles
+    stages = dict(scf.stage_seconds)
+    k3_s = k3_ms / 1e3 * n_prof
+    fl = scf_veff_flops(env.aux_layout.nao, env.nao, int(env.grid.size))
+    d0 = mf0.make_rdm1()
+    e2 = scf._veff_and_exc(d0[0], d0[1])[2]
+    e_of_ckpt_density = (float(np.einsum("pq,qp->", env.hcore.cpu().numpy(), d0[0] + d0[1]))
+                         + e2 + mol.energy_nuc())
+    rec = {"cycles": n, "converged": mf.converged, "scf_s": wall, "s_per_cycle": wall / n,
+           "scf_profiled_s": wall_profiled, "cycles_profiled": n_prof,
+           "stage_s_per_cycle": {k: v / n_prof for k, v in stages.items()},
+           "functional_s_per_cycle": (stages["xc"] - k3_s) / n_prof,
+           "k3_s_per_cycle": k3_s / n_prof,
+           "launches": launches, "launches_per_cycle": {k: v / n for k, v in launches.items()},
+           "e_tot": mf.e_tot, "de_vs_ckpt_ha": d_e,
+           "de_vs_golden_e_scf_ha": mf.e_tot - float(golden["e_scf"]),
+           "max_deps_occ_ha": d_eps, "flops_per_cycle": fl["total"],
+           "kernel_tflops": fl["total"] / (stages["jk"] + stages["rho"] + k3_s)
+                            * n_prof / 1e12,
+           "e_of_ckpt_density_minus_ckpt_e_tot_ha": e_of_ckpt_density - float(ckpt["e_tot"]),
+           "e_tot_minus_e_of_ckpt_density_ha": mf.e_tot - e_of_ckpt_density}
+    _log("phase 7 scf", json.dumps(rec))
+    if not mf.converged:
+        raise AssertionError(f"TTM SCF did not converge: {rec}")
+    if not abs(d_e) <= SCF_GATE_HA:
+        raise AssertionError(f"TTM SCF energy off the checkpoint's by {d_e} Ha")
+    if not d_eps <= SCF_GATE_EPS_HA:
+        raise AssertionError(f"TTM SCF occupied orbital energies off by {d_eps} Ha")
+    short = [k for k, v in launches.items() if v < n]
+    if short:
+        raise AssertionError(f"kernels not launched on every Fock build: {short} {launches}")
+
+    e_ref = np.asarray(golden["xtda_e_ev"])
+    kernels.reset_launch_counts()
+    s = time.perf_counter()
+    res = XTDA(mf, nstates=10, backend="df").kernel()
+    _sync()
+    xt = {"solve_s": time.perf_counter() - s, "launches": kernels.launch_counts(),
+          "cycles": res.cycles, "nroots": len(res.e), "converged": res.converged,
+          "max_dev_ev": float(np.abs(res.e_eV - e_ref[: len(res.e_eV)]).max()),
+          "max_dev_vs_phase3_ev": float(np.abs(res.e_eV - np.asarray(e_phase3)).max()),
+          "e_ev": res.e_eV.tolist()}
+    _log("phase 7 xtda", json.dumps(xt))
+    if not (res.converged and len(res.e) == 10):
+        raise AssertionError(f"X-TDA on the port's SCF: not 10/10 roots converged: {xt}")
+    if not xt["max_dev_ev"] < TTM_GATE_EV:
+        raise AssertionError(f"X-TDA on the port's SCF deviates from golden_ttm.json: {xt}")
+    idle = [k for k, v in xt["launches"].items() if v <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the SCF's X-TDA: {idle}")
+    rec["xtda"] = xt
+    return rec
 
 
 def _plain_matvec(op, z):
@@ -567,6 +750,9 @@ def main(argv=None) -> int:
     record = {"card": card, "builds_s": phase1(), "kernels": phase2()}
     record["ttm"], ref = phase3()
     record["ttm_flip"] = phase5(ref)
+    k3_ao = [c for c in record["kernels"]["checks"] if c["kernel"] == "grid_back"
+             and c["shape"] == "ttm_ao" and c["dtype"] == "float64"][0]
+    record["scf"] = phase7(ref.mf, record["ttm"]["e_ev"], k3_ao["ms"])
     del ref
     torch.cuda.empty_cache()
     record["bench"], data = phase4()
@@ -587,6 +773,10 @@ def main(argv=None) -> int:
         flip_check = [c for c in record["kernels"]["checks"]
                       if c["kernel"] == m.NAME and c["shape"] == "ttm_down"
                       and c["dtype"] == "float64" and c.get("library_ms") is not None][-1]
+        # the SCF's AO mode (phase 7's Fock build), f64
+        ao_check = [c for c in record["kernels"]["checks"]
+                    if c["kernel"] == m.NAME and c["shape"] == "ttm_ao"
+                    and c["dtype"] == "float64" and c["mode"] in ("ao", "hermi")][0]
         entries.append({
             "name": m.NAME, "route": m.ROUTE, "source": m.SOURCE, "replaces": m.REPLACES,
             "launches": record["ttm"]["launches"][m.NAME],
@@ -595,6 +785,11 @@ def main(argv=None) -> int:
                                          "bound_by", "library_ms")},
             **{f"flip_{k}": flip_check[k] for k in ("ms", "plain_ms", "bound_ms",
                                                     "library_ms")},
+            "scf_replaces": SCF_REPLACES[m.NAME],
+            "launches_scf": record["scf"]["launches"][m.NAME],
+            "launches_scf_xtda": record["scf"]["xtda"]["launches"][m.NAME],
+            **{f"scf_{k}": ao_check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")},
         })
     record["total_s"] = time.perf_counter() - t_start
     _log("total seconds", record["total_s"])

@@ -39,8 +39,17 @@ def test_resolve_takes_the_cpu_when_asked(no_card):
         torch.device("cpu"), torch.float32)
 
 
+def _scf():
+    from xtddft_tpu_torch.chem import Molecule
+    from xtddft_tpu_torch.scf import ROKS
+
+    return ROKS(Molecule.from_atoms("F 0 0 0; H 0 0 1.0", basis="6-31g", spin=2),
+                xc="b3lyp", grid_level=1, df=True)
+
+
 ENTRY_POINTS = {
     "load_mf": lambda: load_mf(CKPT, df=True),
+    "scf": _scf,
     "synthetic_df_data": lambda: sigma_df.synthetic_df_data(
         nmo=12, nc=3, no=1, naux=8, ngrid=64),
     "df_data_from_arrays": lambda: sigma_df.df_data_from_arrays({"nc": 1}, None),
@@ -130,3 +139,19 @@ def test_flip_kernel_counts_add_up_to_the_flip_sigma_count(shape, kdim):
         assert grid == 0.0
     assert flops.df_exchange_bytes(naux, nb, n_o, n_v, 8, with_t=False) < flops.df_exchange_bytes(
         naux, nb, n_o, n_v, 8)
+
+
+@pytest.mark.parametrize("exchange", [True, False], ids=["hybrid", "pure"])
+def test_scf_fock_build_counts(exchange):
+    """One TTM SCF Fock build: K1 in AO mode is the flop count of K1 with
+    nocc = nvir = nao on two density matrices, the grid stages are one
+    AO-table GEMM each (2*nz*npts*nao^2 and the four AO rows), and the
+    stages add up; without exchange, t and J are two matrix-vector products."""
+    naux, nao, npts = 4412, 182, 187644
+    f = flops.scf_veff_flops(naux, nao, npts, exchange=exchange)
+    assert f["k1"] == (flops.df_exchange_flops(naux, 2, nao, nao) if exchange else 0.0)
+    assert f["coulomb"] == 2.0 * naux * nao * nao * (1 if exchange else 2)
+    assert f["k2"] == f["k3"] == flops.grid_ao_flops(2, nao, npts) == 4.0 * npts * (nao + 4) * nao
+    assert f["total"] == f["k1"] + f["coulomb"] + f["k2"] + f["k3"]
+    ms, by = flops.bound_ms(f["k2"], flops.grid_ao_bytes(2, nao, npts, 8), "float64")
+    assert by == "operations" and 0.37 < ms < 0.39

@@ -26,8 +26,14 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.xc.functionals",
     "xtddft_tpu_torch.xc.interface",
     "xtddft_tpu_torch.xc.mcol",
+    "xtddft_tpu_torch.chem.geometries",
+    "xtddft_tpu_torch.scf",
     "xtddft_tpu_torch.scf.env",
+    "xtddft_tpu_torch.scf.diis",
+    "xtddft_tpu_torch.scf.driver",
     "xtddft_tpu_torch.scf.checkpoint",
+    "xtddft_tpu_torch.scf.project",
+    "xtddft_tpu_torch.scf.guess",
     "xtddft_tpu_torch.response.reference_state",
     "xtddft_tpu_torch.response.sigma",
     "xtddft_tpu_torch.response.sigma_df",

@@ -337,3 +337,90 @@ def test_df_exchange_refuses_an_empty_extent(empty):
     z = torch.zeros((n["nz"], n["nocc"], n["nvir"]), dtype=torch.float64)
     with pytest.raises(ValueError, match="empty extent"):
         k1.df_exchange(B, z, 0, 3, with_t=False)
+
+
+# ---- the SCF's AO modes: the AO basis on both sides, density matrices as z ----
+
+def _ao_inputs(seed):
+    rng = np.random.default_rng(seed)
+    B = rng.normal(size=(NAUX, NMO, NMO))
+    B = 0.5 * (B + B.transpose(0, 2, 1))
+    c = rng.normal(size=(2, NMO, 7))
+    dms = np.einsum("xmi,xni->xmn", c, c)  # symmetric, one per spin
+    ao = rng.normal(size=(4, GC, NMO))
+    return B, dms, ao, rng
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_df_exchange_ao_mode_matches_jax_scf(chunk):
+    """K1 with o0 = v0 = 0 and nocc = nvir = nao on a stack of density
+    matrices: its t gives `scf/env.py:238` `_df_j`, its K `:244` `_df_k`."""
+    from xtddft_tpu.scf.env import _df_j, _df_k
+
+    B, dms, _, _ = _ao_inputs(20)
+    t, K = k1.df_exchange(torch.as_tensor(B), torch.as_tensor(dms), 0, 0, chunk)
+    Bt = torch.as_tensor(B)
+    J = (t.sum(0) @ Bt.reshape(NAUX, -1)).reshape(NMO, NMO)
+    _rel_close(J, _df_j(jnp.asarray(B), jnp.asarray(dms.sum(0))), RTOL)
+    for x in range(2):
+        _rel_close(K[x], _df_k(jnp.asarray(B), jnp.asarray(dms[x])), RTOL)
+
+
+def test_grid_rho1_hermi_matches_jax_cache_rho():
+    """K2's hermitian mode on the AO table: `xc/interface.py:53` `cache_rho`
+    of each density matrix, value and gradient."""
+    from xtddft_tpu.xc.interface import cache_rho
+
+    _, dms, ao, _ = _ao_inputs(21)
+    out = k2.grid_rho1(torch.as_tensor(ao), torch.as_tensor(dms), 0, 0, hermi=True)
+    for x in range(2):
+        rho, grho = cache_rho(jnp.asarray(ao), jnp.asarray(dms[x]))
+        _rel_close(out[x, 0], rho, RTOL)
+        _rel_close(out[x, 1:4], grho, RTOL)
+
+
+def test_grid_back_ao_mode_matches_jax_contract_vmat():
+    """K3 with the AO table on both sides: `xc/interface.py:112`
+    `_contract_vmat` (A + B + B^T) of each spin's weighted derivatives."""
+    from xtddft_tpu.xc.interface import _contract_vmat
+
+    _, _, ao, rng = _ao_inputs(22)
+    wv, wg = rng.normal(size=(2, GC)), rng.normal(size=(2, 3, GC))
+    out = k3.grid_back(torch.as_tensor(wv), torch.as_tensor(wg), torch.as_tensor(ao), 0, 0,
+                       torch.zeros((2, NMO, NMO), dtype=torch.float64))
+    for x in range(2):
+        _rel_close(out[x], _contract_vmat(jnp.asarray(ao), jnp.asarray(wv[x]),
+                                          jnp.asarray(wg[x])), RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("o0", [0, 3])
+def test_grid_rho1_hermi_operand_gives_plain(o0, dtype):
+    """The hermitian mode's one A operand (tmp's), contracted as the kernel
+    does (every row from tmp, the gradient rows doubled), gives the plain
+    version: the layout contract of that mode."""
+    rng = np.random.default_rng(23)
+    n = 17
+    c = rng.normal(size=(NZ, n, 5))
+    z = torch.as_tensor(np.einsum("xmi,xni->xmn", c, c)).to(dtype).double()
+    phi = torch.as_tensor(rng.normal(size=(4, GC, NMO)))
+    so, sv, za, ra, zb, rb, vu = k2.operands(z.to(dtype), o0, o0, 4, hermi=True)
+    assert zb is None and rb == 0 and not vu and ra % k2._ROW_GROUP[za.element_size()] == 0
+    tmp = torch.einsum("kxi,gk->xig", za.double()[:, :, :so + n],
+                       phi[0][:, o0 - sv:o0 + n])
+    out = torch.stack([torch.einsum("xig,gi->xg", tmp, phi[c][:, o0 - so:o0 + n])
+                       * (2.0 if c else 1.0) for c in range(4)], dim=1)
+    want = k2.grid_rho1_plain(phi, z, o0, o0, None, None, 4, hermi=True)
+    _rel_close(out, want.numpy(), RTOL)
+
+
+def test_grid_rho1_hermi_refuses_two_sides():
+    """The hermitian mode is explicit and needs one table and a square z."""
+    z = torch.zeros((1, 4, 4), dtype=torch.float64)
+    phi = torch.zeros((4, 8, 6), dtype=torch.float64)
+    for kw in ({"phi_v": phi}, {"o0": 0, "v0": 1}):
+        args = {"o0": 0, "v0": 0, **kw}
+        with pytest.raises(ValueError):
+            k2.grid_rho1(phi, z, args.pop("o0"), args.pop("v0"), hermi=True, **args)
+    with pytest.raises(ValueError):
+        k2.grid_rho1(phi, torch.zeros((1, 4, 3), dtype=torch.float64), 0, 0, hermi=True)

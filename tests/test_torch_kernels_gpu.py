@@ -173,6 +173,61 @@ def test_grid_rho1_edges(cuda, shape, dtype, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nao", [37, 183])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_ao_modes_match_plain(cuda, nao, dtype, rtol):
+    """The SCF's Fock build on the kernels: K1 in AO mode (o0 = v0 = 0, nocc =
+    nvir = nao, two density matrices), K2 in its hermitian mode and K3 with
+    the AO table on both sides, at odd nao (element copies of the tables in
+    f32) and a ragged 4099-point grid, one launch each."""
+    g = torch.Generator(cuda).manual_seed(5)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda, dtype=dtype)
+
+    naux, gc = 301, 4099
+    B = randn(naux, nao, nao)
+    B = (B + B.transpose(1, 2)).mul_(0.5)
+    c = randn(2, nao, 9)
+    dms = c @ c.transpose(1, 2)  # symmetric, one per spin
+    ao = randn(4, gc, nao)
+    dwv, dwg = randn(2, gc), randn(2, 3, gc)
+    before = (k1.launches, k2.launches, k3.launches)
+    t, K = k1.df_exchange(B, dms, 0, 0)
+    tp, Kp = k1.df_exchange_plain(B, dms, 0, 0)
+    _rel_close(t, tp, rtol)
+    _rel_close(K, Kp, rtol)
+    _rel_close(k2.grid_rho1(ao, dms, 0, 0, hermi=True),
+               k2.grid_rho1_plain(ao, dms, 0, 0, hermi=True), rtol)
+    out = torch.zeros((2, nao, nao), device=cuda, dtype=dtype)
+    _rel_close(k3.grid_back(dwv, dwg, ao, 0, 0, out.clone()),
+               k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.clone()), rtol)
+    assert (k1.launches, k2.launches, k3.launches) == tuple(n + 1 for n in before)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_scf_on_the_card_matches_the_cpu(cuda):
+    """The SCF whose Fock builds run on K1, K2 and K3 (FH ROKS/BHandHLYP,
+    6-31G, DF, grid level 1) converges to the CPU run's state (the plain
+    versions), one launch of each kernel per Fock build."""
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.chem import Molecule
+    from xtddft_tpu_torch.scf import ROKS
+
+    mol = Molecule.from_atoms("F 0 0 0; H 0 0 1.0", basis="6-31g", spin=2)
+    want = ROKS(mol, xc="bhandhlyp", grid_level=1, df=True, device="cpu").kernel()
+    scf = ROKS(mol, xc="bhandhlyp", grid_level=1, df=True)
+    kernels.reset_launch_counts()
+    got = scf.kernel()
+    assert got.converged and want.converged
+    assert abs(got.e_tot - want.e_tot) <= 1e-9
+    np.testing.assert_allclose(got.mo_energy, want.mo_energy, rtol=0, atol=1e-7)
+    assert kernels.launch_counts() == {n: scf.cycles for n in kernels.launch_counts()}
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_empty_extents(cuda):
     """No kernel is launched on an empty extent: the wrappers raise."""
     B = torch.zeros((4, 6, 6), device=cuda, dtype=torch.float64)

@@ -71,3 +71,29 @@ def test_rho_on_grid_matches_jax():
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-12, atol=0)
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=0,
                                atol=1e-12 * np.abs(np.asarray(jg)).max())
+
+
+@pytest.mark.parametrize("name", ["svwn", "b3lyp", "bhandhlyp"])
+def test_scf_potential_matches_jax(grid_sample, name):
+    """The SCF's functional pieces: `eval_exc`, `eval_vxc` and
+    `vxc_matrices` (the potential matrices through K3's plain version on a
+    random AO table) against the JAX package's."""
+    w, rho, _ = grid_sample
+    spec, jspec = registry.resolve(name), jax_registry.resolve(name)
+    jrho = tuple(map(jnp.asarray, rho))
+    trho = tuple(torch.as_tensor(a, dtype=torch.float64) for a in rho)
+    tw = torch.as_tensor(w, dtype=torch.float64)
+
+    want_e = float(jax_xci.eval_exc(jspec, jnp.asarray(w), jrho))
+    assert abs(float(xci.eval_exc(spec, tw, trho)) - want_e) <= RTOL * abs(want_e)
+    for g, wv in zip(xci.eval_vxc(spec, tw, trho), jax_xci.eval_vxc(jspec, jnp.asarray(w), jrho)):
+        wv = np.asarray(wv)
+        np.testing.assert_allclose(g.numpy(), wv, rtol=0, atol=RTOL * np.abs(wv).max())
+
+    ao = np.random.default_rng(8).normal(size=(4, NPTS, 9))
+    want = jax_xci.vxc_matrices(jspec, jnp.asarray(ao), jnp.asarray(w), jrho)
+    got = xci.vxc_matrices(spec, torch.as_tensor(ao), tw, trho)
+    assert abs(float(got[0]) - float(want[0])) <= RTOL * abs(float(want[0]))
+    for g, wv in zip(got[1:], want[1:]):
+        wv = np.asarray(wv)
+        np.testing.assert_allclose(g.numpy(), wv, rtol=0, atol=RTOL * np.abs(wv).max())

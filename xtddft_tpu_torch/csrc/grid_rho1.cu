@@ -16,6 +16,14 @@
 // gives all four rows (GGA, multicollinear SF kernel); NC = 1 the value row
 // alone (the ALDA0 SF kernel).
 //
+// The hermitian mode computes the SCF's density on the grid
+// (`xtddft_tpu/xc/interface.py:53` `cache_rho`): one table on both sides,
+// o0 = v0, nocc = nvir, and z symmetric (density matrices in the AO
+// basis).  Then sum_v u pv_y = sum_o tmp po_y, so the tmp GEMM alone gives
+// every row: rho1_0 = sum_o tmp po_0 and rho1_y = 2 sum_o tmp po_y, one
+// GEMM where the general mode runs two.  The caller vouches for the
+// symmetry of z; nothing here checks it.
+//
 // Bound on an H100: flops, the GGA minimum of `response/flops.py`:
 //   tmp[x, o, g] = sum_v z[x, o, v] pv_0[g, v]   (2*nz*nocc*nvir per point)
 //   u[x, v, g]   = sum_o z[x, o, v] po_0[g, o]   (the same)
@@ -64,9 +72,10 @@
 // (for u, else null) is [so + nocc][nz * rb] with zb[so + o][x * rb + sv +
 // v] = z[x, o, v]; ra >= so + nocc and rb >= sv + nvir are multiples of the
 // row group (4 in f32, 8 in f64), so <= o0 and sv <= v0 the shifts; vu puts
-// the value row on u; mask (gc,) holds 0/1 in the working type, or is null;
-// out (nz, NC, gc) is accumulated (the caller zeroes it).  Launches on the
-// caller's stream, allocates nothing, returns the first CUDA error.
+// the value row on u; hermi selects the hermitian mode (za alone, phio ==
+// phiv); mask (gc,) holds 0/1 in the working type, or is null; out (nz, NC,
+// gc) is accumulated (the caller zeroes it).  Launches on the caller's
+// stream, allocates nothing, returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,6 +113,7 @@ struct Rho1Gemm {
   const T* E;  // table c of the epilogue at E[c * ec + n * eg + i * em]
   int64_t ec, eg, em;
   int R, nrow, nz, ncomp, c0;  // output rows c0 .. c0 + NE - 1 of ncomp
+  T gf;                        // factor of the gradient rows (2 in the hermitian mode)
   bool vecA, vecB, vecE;
   const T* mask;
   T* out;
@@ -186,19 +196,20 @@ struct Rho1Gemm {
       if (!live) continue;
       T* o = out + (int64_t)(c0 + c) * N + n0 + n;
       const int64_t xs = (int64_t)ncomp * N;
+      const T f = c0 + c > 0 ? mk * gf : mk;
       int x = x0, nb = nb0;
       T s = T(0);
 #pragma unroll
       for (int j = 0; j < QH; ++j) {
         if (j == nb) {
-          if (x < nz) atomicAdd(o + x * xs, s * mk);
+          if (x < nz) atomicAdd(o + x * xs, s * f);
           ++x;
           nb += gpv;
           s = T(0);
         }
         s += red[(half * QH + j) * LDR + n];
       }
-      if (x < nz) atomicAdd(o + x * xs, s * mk);
+      if (x < nz) atomicAdd(o + x * xs, s * f);
     }
   }
 };
@@ -206,7 +217,7 @@ struct Rho1Gemm {
 template <typename T, int NE>
 cudaError_t launch_gemm(const T* A, int lda, int K, int M, int N, const T* Bt, int64_t bg,
                         int64_t bk, const T* E, int64_t ec, int64_t eg, int64_t em, int R,
-                        int nrow, int nz, int ncomp, int c0, const T* mask, T* out,
+                        int nrow, int nz, int ncomp, int c0, T gf, const T* mask, T* out,
                         cudaStream_t stream) {
   using Core = gt::Core<T, 16, 1, 3, gt::NMAJOR, true>;
   using P = Rho1Gemm<Core, NE>;
@@ -215,7 +226,7 @@ cudaError_t launch_gemm(const T* A, int lda, int K, int M, int N, const T* Bt, i
   const bool vecB = bk == 1 && gt::aligned16(Bt, {bg});
   const bool vecE = em == 1 && gt::aligned16(E, {eg, ec});
   const P p{M, N, (K + Core::BK - 1) / Core::BK, 1, 0, P::EPI, A, lda, K, Bt, bg, bk, E, ec, eg,
-            em, R, nrow, nz, ncomp, c0, vecA, vecB, vecE, mask, out};
+            em, R, nrow, nz, ncomp, c0, gf, vecA, vecB, vecE, mask, out};
   return gt::launch<Core>(p, stream);
 }
 
@@ -223,31 +234,34 @@ cudaError_t launch_gemm(const T* A, int lda, int K, int M, int N, const T* Bt, i
 template <typename T>
 cudaError_t launch_side(int ne, const T* A, int lda, int K, const T* Bt, int64_t bg, int64_t bk,
                         const T* E, int64_t ec, int64_t eg, int64_t em, int R, int nrow, int gc,
-                        int nz, int ncomp, int c0, const T* mask, T* out, cudaStream_t stream) {
+                        int nz, int ncomp, int c0, T gf, const T* mask, T* out,
+                        cudaStream_t stream) {
   const int M = nz * R;
   if (ne == 1)
     return launch_gemm<T, 1>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
-                             mask, out, stream);
+                             gf, mask, out, stream);
   if (ne == 3)
     return launch_gemm<T, 3>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
-                             mask, out, stream);
+                             gf, mask, out, stream);
   return launch_gemm<T, 4>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
-                           mask, out, stream);
+                           gf, mask, out, stream);
 }
 
 // One GEMM per operand given: za gives tmp (rows x * ra + i <-> po_c[.,
 // o0 - so + i], k over the columns v0 - sv .. of pv_0), zb gives u (rows
 // x * rb + i <-> pv_c[., v0 - sv + i], k over the columns o0 - so .. of
 // po_0).  The value row rides with u when vu, else with tmp; the gradient
-// rows with both.
+// rows with both.  The hermitian mode (one table, o0 == v0, nocc == nvir,
+// z symmetric) runs tmp alone over every row, its gradient rows doubled.
 template <typename T>
 int launch(const T* phio, long long oc, long long og, long long om, const T* phiv, long long vc,
            long long vg, long long vm, int gc, const T* za, int ra, const T* zb, int rb, int so,
-           int sv, int nz, int nocc, int nvir, int o0, int v0, int ncomp, int vu, const T* mask,
-           T* out, void* stream) {
+           int sv, int nz, int nocc, int nvir, int o0, int v0, int ncomp, int vu, int hermi,
+           const T* mask, T* out, void* stream) {
   constexpr int RG = gt::Core<T, 16, 1, 3, gt::NMAJOR, true>::RG;
-  const bool tmp = ncomp == 4 || !vu, u = ncomp == 4 || vu;
+  const bool tmp = hermi || ncomp == 4 || !vu, u = !hermi && (ncomp == 4 || vu);
   if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 || (ncomp != 1 && ncomp != 4) ||
+      (hermi && (vu || phio != phiv || o0 != v0 || nocc != nvir)) ||
       so < 0 || so > o0 || sv < 0 || sv > v0 ||
       (tmp && (za == nullptr || ra % RG != 0 || ra < so + nocc)) ||
       (u && (zb == nullptr || rb % RG != 0 || rb < sv + nvir)) ||
@@ -260,12 +274,12 @@ int launch(const T* phio, long long oc, long long og, long long om, const T* phi
   if (tmp) {
     const int y0 = vu ? 1 : 0;  // the first table component of the epilogue
     err = launch_side<T>(ncomp - y0, za, nz * ra, sv + nvir, pv, vg, vm, po + y0 * oc, oc, og, om,
-                         ra, so + nocc, gc, nz, ncomp, y0, mask, out, st);
+                         ra, so + nocc, gc, nz, ncomp, y0, T(hermi ? 2 : 1), mask, out, st);
   }
   if (u && err == cudaSuccess) {
     const int y0 = vu ? 0 : 1;
     err = launch_side<T>(ncomp - y0, zb, nz * rb, so + nocc, po, og, om, pv + y0 * vc, vc, vg, vm,
-                         rb, sv + nvir, gc, nz, ncomp, y0, mask, out, st);
+                         rb, sv + nvir, gc, nz, ncomp, y0, T(1), mask, out, st);
   }
   return (int)err;
 }
@@ -277,18 +291,19 @@ extern "C" {
 int grid_rho1_f64(const double* phio, long long oc, long long og, long long om,
                   const double* phiv, long long vc, long long vg, long long vm, int gc,
                   const double* za, int ra, const double* zb, int rb, int so, int sv, int nz,
-                  int nocc, int nvir, int o0, int v0, int ncomp, int vu, const double* mask,
-                  double* out, void* stream) {
+                  int nocc, int nvir, int o0, int v0, int ncomp, int vu, int hermi,
+                  const double* mask, double* out, void* stream) {
   return launch<double>(phio, oc, og, om, phiv, vc, vg, vm, gc, za, ra, zb, rb, so, sv, nz, nocc,
-                        nvir, o0, v0, ncomp, vu, mask, out, stream);
+                        nvir, o0, v0, ncomp, vu, hermi, mask, out, stream);
 }
 
 int grid_rho1_f32(const float* phio, long long oc, long long og, long long om, const float* phiv,
                   long long vc, long long vg, long long vm, int gc, const float* za, int ra,
                   const float* zb, int rb, int so, int sv, int nz, int nocc, int nvir, int o0,
-                  int v0, int ncomp, int vu, const float* mask, float* out, void* stream) {
+                  int v0, int ncomp, int vu, int hermi, const float* mask, float* out,
+                  void* stream) {
   return launch<float>(phio, oc, og, om, phiv, vc, vg, vm, gc, za, ra, zb, rb, so, sv, nz, nocc,
-                       nvir, o0, v0, ncomp, vu, mask, out, stream);
+                       nvir, o0, v0, ncomp, vu, hermi, mask, out, stream);
 }
 
 const char* xk_error_string(int code) {

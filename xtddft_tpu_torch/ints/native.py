@@ -42,6 +42,10 @@ def load():
         ctypes.c_int, ip, ip, ip, dp, dp, dp, ip, ctypes.c_int, dp, lp, dp,
         ctypes.c_double,
     ]
+    lib.md_eri_full.argtypes = [
+        ctypes.c_int, ip, ip, ip, dp, dp, dp, ip, ctypes.c_int, dp, lp, dp,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double,
+    ]
     _LIB = lib
     return lib
 
@@ -110,5 +114,24 @@ def eri_2c_native(aux: BasisLayout, omega: float = 0.0) -> np.ndarray:
         _ptr(ao_offx, ctypes.c_int), aux.nao,
         _ptr(c2s_flat, ctypes.c_double), _ptr(c2s_off, ctypes.c_long),
         _ptr(out, ctypes.c_double), float(omega),
+    )
+    return out
+
+
+def eri_full_native(layout: BasisLayout, omega: float = 0.0,
+                    prim_eps: float = 1e-15,
+                    schwarz_eps: float = 1e-14) -> np.ndarray:
+    lib = load()
+    ls, nprim, prim_off, exps, coefs, centers, ao_off = _pack(layout)
+    c2s_flat, c2s_off = _c2s_pack()
+    nao = layout.nao
+    out = np.zeros((nao, nao, nao, nao))
+    lib.md_eri_full(
+        len(ls), _ptr(ls, ctypes.c_int), _ptr(nprim, ctypes.c_int),
+        _ptr(prim_off, ctypes.c_int), _ptr(exps, ctypes.c_double),
+        _ptr(coefs, ctypes.c_double), _ptr(centers, ctypes.c_double),
+        _ptr(ao_off, ctypes.c_int), nao, _ptr(c2s_flat, ctypes.c_double),
+        _ptr(c2s_off, ctypes.c_long), _ptr(out, ctypes.c_double),
+        float(omega), float(prim_eps), float(schwarz_eps),
     )
     return out

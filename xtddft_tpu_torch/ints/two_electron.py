@@ -1,10 +1,12 @@
-"""Two-electron repulsion integrals for density fitting (3-center, 2-center).
+"""Two-electron repulsion integrals: 3- and 2-center for density fitting,
+4-center for a free atom.
 
-Both run on the native McMurchie-Davidson engine (`xtddft_native/md_eri.cpp`,
+All run on the native McMurchie-Davidson engine (`xtddft_native/md_eri.cpp`,
 built from source by `ints/native.py`).  The optional ``omega`` gives
 erf(omega*r12)/r12 attenuated integrals (range-separated hybrids).  The
-in-core 4-center tensor and the pure-Python engine of the JAX package are
-not part of this package: the DF response path never forms nao^4 ERIs.
+4-center tensor serves the SAD guess's atomic SCFs (`scf/guess.py`); the
+molecular SCF and the response never form nao^4 ERIs (their J/K is density
+fitted), and the pure-Python engine of the JAX package is not ported.
 """
 
 from __future__ import annotations
@@ -23,3 +25,9 @@ def eri_3c(layout: BasisLayout, aux: BasisLayout, omega=None) -> np.ndarray:
 def eri_2c(aux: BasisLayout, omega=None) -> np.ndarray:
     """(P|Q) two-center Coulomb metric, shape (naux, naux)."""
     return native.eri_2c_native(aux, omega=omega or 0.0)
+
+
+def eri_full(layout: BasisLayout, omega=None) -> np.ndarray:
+    """Full (nao, nao, nao, nao) spherical ERI tensor, chemists' notation
+    (ij|kl); nao^4 doubles, so for atom-sized layouts."""
+    return native.eri_full_native(layout, omega=omega or 0.0)

@@ -106,6 +106,38 @@ def grid_rho1_bytes(nz, nocc, nvir, npts, itemsize, ncomp=4, masked=True):
     return float(itemsize) * (reads + ncomp * nz * npts)
 
 
+def grid_ao_flops(nz, nao, npts):
+    """The SCF's grid work per stage, K2 hermitian (the density on the grid:
+    tmp = dm . phi0, 2*nao^2 per matrix and point, and its dots with the
+    four AO rows, 8*nao), which the kernel does, and K3 on the AO table
+    (the XC potential matrix) at its least: V' = sum_g phi0_m F_n with
+    F = wv/2 phi0 + sum_y wvec_y phiy (8*nao per point), then V' + V'^T,
+    the same count; K3 contracts over four components, four times its
+    leading term."""
+    return 2.0 * nz * npts * (nao * nao + 4 * nao)
+
+
+def grid_ao_bytes(nz, nao, npts, itemsize):
+    """K2 hermitian / K3 AO mode: the AO table read once, the (nz, 4, npts)
+    grid side and the (nz, nao, nao) matrices read or written once."""
+    return float(itemsize) * (4 * npts * nao + 4 * nz * npts + nz * nao * nao)
+
+
+def scf_veff_flops(naux, nao, npts, nz=2, exchange=True, xc=True):
+    """One SCF Fock build on the port's path, per stage: K1 in AO mode (t
+    and K of nz density matrices), the Coulomb GEMM J = B . t, K2
+    hermitian, K3 in AO mode (the functional's own work is not counted);
+    without exchange, t = B . dm is a second matrix-vector product.
+    Returns {stage: flops} with the total under "total"."""
+    out = {"k1": df_exchange_flops(naux, nz, nao, nao) if exchange else 0.0,
+           # J = B . t, and t = B . dm without K1 (no exchange)
+           "coulomb": 2.0 * naux * nao * nao * (1 if exchange else 2),
+           "k2": grid_ao_flops(nz, nao, npts) if xc else 0.0,
+           "k3": grid_ao_flops(nz, nao, npts) if xc else 0.0}
+    out["total"] = sum(out.values())
+    return out
+
+
 def bound_ms(flops, nbytes, dtype_name):
     """(least time in ms, "operations" or "bytes") on the card."""
     t_ops = flops / PEAK_FLOPS[dtype_name]

@@ -135,11 +135,10 @@ def make_reference(mf: MeanField, fock_hf_mo=None) -> Reference:
         fa_hf_mo, fb_hf_mo = fock_hf_mo
     elif restricted_open:
         # HF-flavored veff on the converged (DFT) density
-        dm = env.tensor(mf.make_rdm1())
-        J = env.get_j(dm[0] + dm[1])
+        J, K = env.get_jk(env.tensor(mf.make_rdm1()))
         h = env.hcore
-        fa_hf = (h + J - env.get_k(dm[0])).cpu().numpy()
-        fb_hf = (h + J - env.get_k(dm[1])).cpu().numpy()
+        fa_hf = (h + J - K[0]).cpu().numpy()
+        fb_hf = (h + J - K[1]).cpu().numpy()
         fa_hf_mo = mo_a.T @ fa_hf @ mo_a
         fb_hf_mo = mo_b.T @ fb_hf @ mo_b
 

@@ -24,10 +24,9 @@ def _rho0(ref: Reference):
             "meta-GGA reference: the tau channel is not ported yet "
             "(ROADMAP queue 1, item 3)")
     env = ref.env
-    ao = env.ao
-    ra, ga = xci.cache_rho(ao, env.tensor(ref.orbo_a @ ref.orbo_a.T))
-    rb, gb = xci.cache_rho(ao, env.tensor(ref.orbo_b @ ref.orbo_b.T))
-    return (ra, rb, ga, gb)
+    r, g = xci.cache_rho(env.ao, env.tensor(np.stack([ref.orbo_a @ ref.orbo_a.T,
+                                                      ref.orbo_b @ ref.orbo_b.T])))
+    return (r[0], r[1], g[0], g[1])
 
 
 @dataclasses.dataclass

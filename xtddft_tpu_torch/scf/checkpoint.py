@@ -1,9 +1,10 @@
-"""Rebuild a converged MeanField from a checkpoint of the JAX package.
+"""SCF checkpointing: persist a converged MeanField and rebuild it.
 
-Reads the ``save_mf`` format of `xtddft_tpu/scf/checkpoint.py` (orbitals,
-occupations, converged Fock matrices, molecule spec); the Env (integrals,
-grids, DF tensors) is rebuilt lazily from the molecule spec on the given
-device.
+The ``save_mf`` format of the JAX package's `scf/checkpoint.py`, schema 2,
+written and read the same way (orbitals, occupations, converged Fock
+matrices, molecule spec), so a checkpoint of either package loads in the
+other; the Env (integrals, grids, DF tensors) is rebuilt lazily from the
+molecule spec on the given device.
 """
 
 from __future__ import annotations
@@ -16,7 +17,35 @@ from xtddft_tpu_torch.scf.driver import MeanField
 from xtddft_tpu_torch.scf.env import Env
 from xtddft_tpu_torch.xc import registry as xc_registry
 
-__all__ = ["load_mf"]
+__all__ = ["save_mf", "load_mf"]
+
+
+def save_mf(mf: MeanField, path: str) -> None:
+    mol = mf.mol
+    np.savez_compressed(
+        path,
+        symbols=np.asarray(mol.symbols),
+        coords=np.asarray(mol.coords),
+        charge=mol.charge,
+        spin=mol.spin,
+        basis=mol.basis,
+        kind=mf.kind,
+        xc=mf.xc.name if mf.xc is not None else "",
+        grid_level=mf.env.grid_level,
+        df=mf.env.df,
+        aux_beta=mf.env.aux_beta,
+        aux_mode=mf.env.aux_mode,
+        schema=2,
+        v_ext=(np.zeros(0) if mf.v_ext is None else np.asarray(mf.v_ext)),
+        x2c=mf.env.x2c,
+        mo_coeff=np.asarray(mf.mo_coeff),
+        mo_energy=np.asarray(mf.mo_energy),
+        mo_occ=np.asarray(mf.mo_occ),
+        e_tot=mf.e_tot,
+        converged=mf.converged,
+        fock_a=np.asarray(mf.fock_a),
+        fock_b=np.asarray(mf.fock_b),
+    )
 
 
 def load_mf(path: str, df: bool | None = None,

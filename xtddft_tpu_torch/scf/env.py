@@ -3,9 +3,11 @@
 One `Env` per (molecule, basis, grid level, device, dtype).  Host integrals
 (numpy, native engine) are computed lazily and cached; the tensors the
 response consumes live on ``device`` in ``dtype``.  The DF subset of the
-JAX package's `scf/env.py`: the metric dressing ``isqrt @ j3c`` and the DF
-J/K builds run as torch on the device.  x2c and the in-core ERI tensors are
-not ported yet.
+JAX package's `scf/env.py`: the metric dressing ``isqrt @ j3c`` runs as a
+torch matmul on the device, the DF exchange on the hand-written kernel K1
+`df_exchange` in AO mode (the AO basis as both its occupied and its virtual
+range, density matrices as its trial vectors).  x2c and the in-core ERI
+tensors are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from xtddft_tpu_torch import config
 from xtddft_tpu_torch.chem.molecule import Molecule
 from xtddft_tpu_torch.grids import build_grid, eval_ao
+from xtddft_tpu_torch.kernels.df_exchange import df_exchange
 from xtddft_tpu_torch.ints import (
     angular_momentum,
     build_layout,
@@ -153,13 +156,30 @@ class Env:
         return self.df_B(omega).cpu().numpy()
 
     # -- DF J/K builds ------------------------------------------------------
-    def get_j(self, dm: torch.Tensor) -> torch.Tensor:
+    def _coulomb(self, t: torch.Tensor) -> torch.Tensor:
+        """J = sum_P B[P] t_P, the Coulomb GEMM (a torch matmul)."""
         B = self.df_B()
-        t = torch.einsum("Pls,sl->P", B, dm)
-        return torch.einsum("Pmn,P->mn", B, t)
+        return (t @ B.reshape(B.shape[0], -1)).reshape(B.shape[1:])
+
+    def get_j(self, dm: torch.Tensor) -> torch.Tensor:
+        """J[dm] = sum_P B[P] t_P with t_P = sum_ls B[P,l,s] dm[s,l]: two
+        matrix-vector products with B (JAX `scf/env.py:238` `_df_j`)."""
+        B = self.df_B()
+        return self._coulomb(B.reshape(B.shape[0], -1) @ dm.T.reshape(-1))
 
     def get_k(self, dm: torch.Tensor, omega: float | None = None) -> torch.Tensor:
-        # pyscf convention: K_pq = sum_{rs} (pr|sq) dm_rs
-        #                        = sum_P (B[P] @ dm @ B[P])_pq
-        B = self.df_B(omega or 0.0)
-        return torch.matmul(torch.matmul(B, dm), B).sum(0)
+        """pyscf convention: K_pq = sum_{rs} (pr|sq) dm_rs = sum_P (B[P] dm
+        B[P])_pq (JAX `scf/env.py:244` `_df_k`), on K1; ``omega``: the
+        long-range erf kernel's own fitted tensor."""
+        return self.get_jk(dm[None], omega, with_j=False)[1][0]
+
+    def get_jk(self, dms: torch.Tensor, omega: float | None = None, with_j: bool = True):
+        """(J of the summed densities or None, K of each) for a stack dms
+        (nz, nao, nao) in one K1 launch: K1's Coulomb intermediate t[x, P]
+        is `_df_j`'s t, its exchange is `_df_k`, because B is symmetric in
+        its AO pair.  ``with_j`` needs the Coulomb tensor (omega 0)."""
+        omega = float(omega or 0.0)
+        if with_j and omega:
+            raise ValueError("get_jk: J is the Coulomb (omega = 0) tensor's")
+        t, K = df_exchange(self.df_B(omega), dms, 0, 0, with_t=with_j)
+        return (self._coulomb(t.sum(0)) if with_j else None), K

@@ -1,12 +1,17 @@
-"""Grid XC evaluation: densities on the grid and the fxc response via torch.func.
+"""Grid XC evaluation: densities, SCF potentials and the fxc response via torch.func.
 
 Every functional is an energy density e(rho_a, rho_b, grad_rho_a,
-grad_rho_b); the TDDFT kernel response is
+grad_rho_b); then
 
-    fxc . rho1 = jvp(grad(sum_g w e))
+    vxc      = grad(sum_g w e)          (SCF potential)
+    fxc.rho1 = jvp(grad(sum_g w e))     (TDDFT kernel response)
 
-(``torch.func.jvp`` of ``torch.func.grad``), exact for LDA and GGA including
-all gamma cross terms.  Counterpart of the JAX package's `xc/interface.py`.
+(``torch.func.grad`` and its ``torch.func.jvp``), exact for LDA and GGA
+including all gamma cross terms.  Counterpart of the JAX package's
+`xc/interface.py`.  The density on the grid (`cache_rho`) and the potential
+matrix (`_contract_vmat`) are the hand-written kernels K2 (hermitian mode)
+and K3 on the AO table when the tensors are on the card, their plain torch
+versions on the CPU.
 
 Density convention: ``rho = (ra, rb, ga, gb)`` with ra/rb shape (ng,) and
 ga/gb shape (3, ng).
@@ -16,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from xtddft_tpu_torch.kernels.grid_back import grid_back
+from xtddft_tpu_torch.kernels.grid_rho1 import grid_rho1
 from xtddft_tpu_torch.xc import functionals as fl
 from xtddft_tpu_torch.xc.registry import XCSpec
 
@@ -43,15 +50,17 @@ def exc_density_fn(spec: XCSpec):
 
 
 def cache_rho(ao, dm):
-    """Density and gradient on the grid from AO values.
+    """Density and gradient on the grid from AO values: K2 `grid_rho1` in
+    its hermitian mode, one launch for a whole stack of matrices.
 
-    ao: (4, ng, nao) [value, ddx, ddy, ddz]; dm: (nao, nao) symmetric.
-    Returns (rho (ng,), grho (3, ng)).
+    ao: (4, ng, nao) [value, ddx, ddy, ddz]; dm: (nao, nao) or (nz, nao,
+    nao), symmetric.  Returns (rho (ng,), grho (3, ng)), with a leading nz
+    axis for a stack.
     """
-    t = ao[0] @ dm  # (ng, nao)
-    rho = torch.einsum("gj,gj->g", t, ao[0])
-    grho = 2.0 * torch.einsum("xgi,gi->xg", ao[1:4], t)
-    return rho, grho
+    r = grid_rho1(ao, dm.reshape(-1, *dm.shape[-2:]), 0, 0, hermi=True)
+    if dm.dim() == 2:
+        r = r[0]
+    return r[..., 0, :], r[..., 1:4, :]
 
 
 def _sanitize(weights, rho):
@@ -69,6 +78,52 @@ def _sanitize(weights, rho):
     ga_s = torch.where(mask[None, :], ga, zero)
     gb_s = torch.where(mask[None, :], gb, zero)
     return w, (ra_s, rb_s, ga_s, gb_s), mask
+
+
+def eval_exc(spec: XCSpec, weights, rho):
+    """Exchange-correlation energy sum_g w e on the sanitized densities."""
+    w, rho_s, _ = _sanitize(weights, rho)
+    return torch.sum(w * exc_density_fn(spec)(*rho_s))
+
+
+def eval_vxc(spec: XCSpec, weights, rho):
+    """Weighted potential derivatives (w * vrho_a, w * vrho_b, w * wvec_a,
+    w * wvec_b), wvec = dE/d(grad rho) = 2 vgaa*ga + vgab*gb."""
+    return _exc_and_vxc(spec, weights, rho)[1]
+
+
+def _exc_and_vxc(spec: XCSpec, weights, rho):
+    """(Exc, eval_vxc's four derivatives) from one ``torch.func`` pass."""
+    w, rho_s, _ = _sanitize(weights, rho)
+    efn = exc_density_fn(spec)
+
+    def total(*args):
+        return torch.sum(w * efn(*args))
+
+    dv, exc = torch.func.grad_and_value(total, argnums=(0, 1, 2, 3))(*rho_s)
+    return exc, dv
+
+
+def _contract_vmat(ao, wv, wvec):
+    """V_mu_nu = sum_g [wv phi phi + wvec . (grad(phi) phi + phi grad(phi))]:
+    K3 `grid_back` with the AO table on both sides, one launch for a stack.
+
+    wv: (ng,) or (nz, ng); wvec: (3, ng) or (nz, 3, ng).  Returns (nao,
+    nao), with a leading nz axis for a stack.
+    """
+    dwv = wv.reshape(-1, wv.shape[-1])
+    out = torch.zeros((dwv.shape[0], ao.shape[2], ao.shape[2]), dtype=ao.dtype, device=ao.device)
+    grid_back(dwv, wvec.reshape(-1, 3, wvec.shape[-1]), ao, 0, 0, out)
+    return out[0] if wv.dim() == 1 else out
+
+
+def vxc_matrices(spec: XCSpec, ao, weights, rho):
+    """(Exc, Va, Vb) for the SCF Fock build: the functional and its
+    derivatives in one ``torch.func`` pass, both potentials in one K3
+    launch."""
+    exc, (wva, wvb, wga, wgb) = _exc_and_vxc(spec, weights, rho)
+    V = _contract_vmat(ao, torch.stack([wva, wvb]), torch.stack([wga, wgb]))
+    return exc, V[0], V[1]
 
 
 def make_fxc_jvp(spec: XCSpec):
