@@ -19,11 +19,18 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    the spin-flip modes (exchange-only K1, value-only and four-component K2
    and K3 on overlapping o/v ranges, one case with the virtual side on a
    second tensor and table) at the flip shapes of TTM and of the bench width;
-   then the SCF's AO modes at the TTM shapes (K1 on two density matrices
-   with o0 = v0 = 0 and nocc = nvir = nao, K2 hermitian, K3 with the AO table
-   on both sides, the whole grid in one launch), with ``library_ms`` the
-   single einsum of the exchange and of the density (four rows, and the
-   value row alone);
+   then the SCF's AO modes at the TTM shapes and, in f64, at TTM/dzp (K1 on
+   two density matrices with o0 = v0 = 0 and nocc = nvir = nao, K2
+   hermitian, K3 with the AO table on both sides, the whole grid in one
+   launch), with ``library_ms`` the single einsum of the exchange and of the
+   density (four rows, and the value row alone).  K1 sums in a fixed order
+   in every mode; K2 and K3 run the AO modes in their fixed summation order,
+   as the SCF runs them, with the atomic order timed beside, and the
+   response shapes in the atomic order, with the fixed order timed beside
+   (its cost).  Every fixed-order launch is made twice and must repeat
+   bitwise.  The
+   X-TDA shapes include TTM/dzp's alpha block in f64 (nz 20, naux 3990, nmo
+   598; K2 and K3 on a 12-chunk jvp group);
 3. the main path: X-TDA on the TTM radical (182 AO, ROKS/B3LYP, density
    fitted) through ``XTDA(load_mf(...), backend="df").kernel()`` in f64,
    gated against ``tests/data/golden_ttm.json``; every kernel must have
@@ -45,7 +52,20 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    synchronized at each stage for the split of a cycle (the functional's
    share is the ``xc`` stage less phase 2's K3 time in AO mode); then
    ``XTDA(mf, nstates=10, backend="df")`` on that mean field, gated against
-   ``golden_ttm.json`` like phase 3.
+   ``golden_ttm.json`` like phase 3.  Both SCFs must take the same cycles
+   and give the bitwise-same energy (the Fock build sums in a fixed order);
+8. production scale, TTM/dzp (598 AO, naux 3990), f64, on one Env:
+   ``load_mf`` of ``tests/data/ttm_dzp_ckpt.npz``, then ``XTDA(nstates=20)``
+   and ``XSFTDA(SA=0)`` (10 roots, the flip golden's own arguments), each
+   gated against the JAX package's own f64 solve of the same checkpoint (the
+   ``DZP_JAX_*`` constants) with the goldens' deviations and TTM's E-pair
+   splittings printed beside them; then the energy and orbital gradient of
+   the checkpoint's own density under the port's Fock build, the ROKS SCF
+   from ``geometries.ttm_vacuum`` and the STO-3G checkpoint projected to
+   dzp (gated against the JAX host engine's energy of that density and the
+   checkpoint's occupied orbital energies), and ``XTDA(nstates=5)`` on its
+   mean field.  The set-up line gives each host step's seconds and the
+   host's core count; every kernel must launch in every leg.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -55,6 +75,7 @@ JSON file.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import statistics
@@ -72,6 +93,49 @@ AO_RTOL = {"float64": 1e-12, "float32": 1e-5}  # the SCF's AO modes
 TTM_GATE_EV = 5e-3  # the JAX DF path's own gate (tests/test_production.py)
 SCF_GATE_HA = 1e-6  # TTM SCF energy against the JAX package's checkpoint
 SCF_GATE_EPS_HA = 1e-5  # occupied orbital energies against it
+# TTM/dzp (phase 8).  The goldens `golden_ttm_dzp*.json` and the stored
+# e_tot of `ttm_dzp_ckpt.npz` come from the JAX package's mixed-precision
+# production chain and are off the f64 DF operators (2.7-34 meV, 5e-5 Ha;
+# TTM's D3 E pairs split by 4-17 meV in the goldens); they are printed, not
+# gated.  The references instead: the JAX package's own f64 solve of the
+# checkpoint, with the eigensolve of its DF drivers on its f64 X-TDA and
+# XSF-TDA operators built on the host (`tools/ttm_dzp_ckpt_energy.py
+# --solve`: roots in eV and the flip roots' <dS^2>), and the JAX host
+# engine's energy of the checkpoint's density (the same run)
+DZP_JAX_XTDA_EV = (
+    2.493866335695523, 2.4947596334974476, 2.7333894812217863, 2.75117264466977,
+    2.7514196252286487, 2.975365461290274, 3.534517250579991, 3.53483549264867,
+    3.6532052618479813, 3.653225178921182, 3.7423195307368675, 3.742425347256728,
+    3.826892874126782, 3.844602993641153, 3.920372347458342, 3.9204770591770863,
+    3.9529553584399495, 3.9530748489699428, 3.967599961120482, 4.006207887011033,
+)
+DZP_JAX_XSF_EV = (
+    2.3704744966592144, 2.3715599491004884, 2.6399184301523806, 2.652679245686194,
+    2.6529959324296044, 2.8642980862106064, 3.2766252624137104, 3.2766805327957664,
+    3.608756936802308, 3.6088008257894404,
+)
+DZP_JAX_XSF_DS2 = (
+    0.0630150878278252, 0.06297461297139843, 0.059059304116762884, 0.06377323958381083,
+    0.06375434632987974, 0.08115833559137343, 0.18184941497373333, 0.18201003239329974,
+    0.047402001104889964, 0.047398436115701624,
+)
+DZP_JAX_E_OF_CKPT_DENSITY = -4868.533560419979
+DZP_GATE_EV = 1e-4
+DZP_GATE_DS2 = 1e-3
+# X-TDA on the port's own SCF mean field (another mean field than the
+# checkpoint's) against the roots of the checkpoint's: the JAX DF path's
+# gate at 598 AO (tests/test_production.py)
+DZP_SCF_XTDA_GATE_EV = 2e-3
+# at dzp the kept fit metric spans a condition number of 2.1e14, so the
+# few-ulp differences between two builds of the integral engine (the
+# 2-center metric, the 3-center integrals) move the fitted energy: the port
+# puts the checkpoint's density 5.7e-6 Ha below the JAX host engine
+# (`tools/ttm_dzp_ckpt_energy.py --compare-fit` evaluates the JAX engine
+# with the port's metric, then with its metric and j3c); about three times that
+DZP_SCF_GATE_HA = 2e-5
+# the dzp checkpoint was accepted by the JAX device engine at |g| ~ 1.8e-5,
+# so its orbital energies carry that error
+DZP_SCF_GATE_EPS_HA = 1e-4
 
 
 def _log(*args):
@@ -131,10 +195,14 @@ def phase1() -> dict:
 
 
 # (label, nz, naux, nmo, ((nocc, nvir) of the alpha and beta blocks), the
-# grid chunks of one jvp group, the span K2 and K3 take in one launch)
+# grid chunks of one jvp group, the span K2 and K3 take in one launch, the
+# dtypes checked)
+F64_ONLY = (torch.float64,)
+BOTH = (torch.float64, torch.float32)
 MAIN_SHAPES = (
-    ("ttm", 10, 4412, 182, ((137, 45), (136, 46)), 23),
-    ("bench", 20, 2000, 1000, ((80, 920), (78, 922)), 12),
+    ("ttm", 10, 4412, 182, ((137, 45), (136, 46)), 23, BOTH),
+    ("bench", 20, 2000, 1000, ((80, 920), (78, 922)), 12, BOTH),
+    ("dzp", 20, 3990, 598, ((137, 461), (136, 462)), 12, F64_ONLY),
 )
 # K1 edge cases, checked but not timed: (label, nz, naux, nmo, nocc, nvir)
 K1_EDGES = (
@@ -154,19 +222,32 @@ FLIP_SHAPES = (
 )
 
 
-def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=None):
+def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=None, twin=None):
     """Hold kern() against plain() (relative to max |plain|); time both
     and add the bound when ``timed``.  ``library``: one PyTorch call that
     computes the same function (a single multi-operand einsum), where there
     is one: held against plain() and timed for ``library_ms``; the port
     never calls it.  None where the function has two outputs or is a sum of
-    products."""
+    products.  ``rec["fixed_order"]``: kern sums in a fixed order, so a
+    second launch must repeat the first bitwise.  ``twin``: the same kernel
+    in its other summation order, held against plain() too; the fixed-order
+    one of the two is launched twice and must repeat bitwise; ``twin_ms`` is
+    its time and ``fixed_order_cost`` the fixed order's time over the atomic
+    order's, less one."""
     got = kern()
     _sync()
     want = plain()
     _sync()
     rec["max_abs_err"], rec["rel_err"] = rel_err(got, want)
-    del got
+    other = None
+    if twin is not None:
+        other = twin()
+        rec["twin_rel_err"] = rel_err(other, want)[1]
+    if rec.get("fixed_order") or twin is not None:
+        fixed, again = (got, kern()) if rec.get("fixed_order") else (other, twin())
+        rec["fixed_repeats_bitwise"] = bool(torch.equal(fixed, again))
+        del fixed, again
+    del got, other
     if library is not None:
         rec["library_rel_err"] = rel_err(library(), want)[1]
     del want
@@ -177,11 +258,20 @@ def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=Non
         rec["plain_ms"] = time_ms(plain)  # the cuBLAS einsum route of the JAX code
         rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, rec["dtype"])
         rec["library_ms"] = None if library is None else time_ms(library)
+        if twin is not None:
+            rec["twin_ms"] = time_ms(twin)
+            fixed_ms, atomic_ms = ((rec["ms"], rec["twin_ms"]) if rec["fixed_order"]
+                                   else (rec["twin_ms"], rec["ms"]))
+            rec["fixed_order_cost"] = fixed_ms / atomic_ms - 1.0
     _log("phase 2", json.dumps(rec))
     if not rec["rel_err"] <= rec["rtol"]:
         raise AssertionError(f"{rec['kernel']} disagrees with its plain version: {rec}")
     if not rec.get("library_rel_err", 0.0) <= rec["rtol"]:
         raise AssertionError(f"{rec['kernel']}: the library call computes another function: {rec}")
+    if twin is not None and not rec["twin_rel_err"] <= rec["rtol"]:
+        raise AssertionError(f"{rec['kernel']}: its other summation order disagrees: {rec}")
+    if not rec.get("fixed_repeats_bitwise", True):
+        raise AssertionError(f"{rec['kernel']}: two fixed-order launches differ: {rec}")
     checks.append(rec)
 
 
@@ -202,7 +292,9 @@ def phase2() -> dict:
         tol = F64_RTOL if dtype == torch.float64 else F32_RTOL
         dname = str(dtype).split(".")[-1]
         isz = torch.empty((), dtype=dtype).element_size()
-        for label, nz, naux, nmo, blocks, nspan in MAIN_SHAPES:
+        for label, nz, naux, nmo, blocks, nspan, dtypes in MAIN_SHAPES:
+            if dtype not in dtypes:
+                continue
             G = torch.randn((naux, nmo, 8), generator=g, device="cuda", dtype=dtype)
             B = torch.bmm(G, G.transpose(1, 2)) / (naux * nmo * 8) ** 0.5
             del G
@@ -223,9 +315,11 @@ def phase2() -> dict:
                 def rec(name, **kw):
                     return {"kernel": name, "shape": label, "spin": spin, "dtype": dname,
                             "nz": nz, "naux": naux, "nmo": nmo, "nocc": no, "nvir": nv,
-                            "rtol": tol, **kw}
+                            "rtol": tol, "fixed_order": False, **kw}
 
-                _check(checks, rec(k1.NAME),
+                # K1 sums in its fixed order on every path; K2 and K3 in the
+                # sigma's order (atomics), their fixed-order twins timed beside
+                _check(checks, rec(k1.NAME, fixed_order=True),
                        lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, z, 0, no)]),
                        lambda: torch.cat([x.flatten() for x in
                                           k1.df_exchange_plain(B, z, 0, no)]),
@@ -237,14 +331,19 @@ def phase2() -> dict:
                            lambda: k2.grid_rho1(ph, z, 0, no, mk),
                            lambda: k2.grid_rho1_plain(ph, z, 0, no, mk),
                            timed, fl.grid_rho1_flops(nz, no, nv, pts),
-                           fl.grid_rho1_bytes(nz, no, nv, pts, isz))
+                           fl.grid_rho1_bytes(nz, no, nv, pts, isz),
+                           twin=(lambda: k2.grid_rho1(ph, z, 0, no, mk, fixed_order=True))
+                           if timed else None)
                 one_chunk = (gc, phi, dwv[:, :gc].contiguous(), dwg[..., :gc].contiguous())
                 for pts, ph, dv, dg in (one_chunk, (span, phi_span, dwv, dwg)):
                     _check(checks, rec(k3.NAME, gc=pts),
                            lambda: k3.grid_back(dv, dg, ph, 0, no, out.zero_()).clone(),
                            lambda: k3.grid_back_plain(dv, dg, ph, 0, no, out.zero_()).clone(),
                            timed, fl.grid_back_flops(nz, no, nv, pts),
-                           fl.grid_back_bytes(nz, no, nv, pts, isz))
+                           fl.grid_back_bytes(nz, no, nv, pts, isz),
+                           twin=(lambda: k3.grid_back(dv, dg, ph, 0, no, out.zero_(),
+                                                      fixed_order=True).clone())
+                           if timed else None)
             del B, phi_all, phi, phi_span, mask_span
             torch.cuda.empty_cache()
         for label, nz, naux, nmo, n_o, v0, n_v, npts, two in FLIP_SHAPES:
@@ -265,7 +364,7 @@ def phase2() -> dict:
                         "naux": naux, "nmo": nmo, "nocc": n_o, "v0": v0, "nvir": n_v,
                         "two_tables": two, "rtol": tol}
 
-            _check(checks, rec(k1.NAME, "exchange_only"),
+            _check(checks, {**rec(k1.NAME, "exchange_only"), "fixed_order": True},
                    lambda: k1.df_exchange(B, z, 0, v0, B_vir=Bv, with_t=False)[1],
                    lambda: k1.df_exchange_plain(B, z, 0, v0, B_vir=Bv, with_t=False)[1],
                    True, fl.df_exchange_flops(naux, nz, n_o, n_v, with_t=False),
@@ -305,7 +404,9 @@ def phase2() -> dict:
                        fl.grid_back_bytes(nz, n_o, n_v, npts, isz, ncomp), library=lib3)
             del phi, phi_v, pv, dwv, dwg, out, libs
             torch.cuda.empty_cache()
-        _ao_checks(checks, g, dtype)
+        for shape in AO_SHAPES:
+            if dtype in shape[-1]:
+                _ao_checks(checks, g, dtype, *shape[:-1])
         for label, nz, naux, nmo, no, nv in K1_EDGES:
             B = torch.randn((naux, nmo, nmo), generator=g, device="cuda", dtype=dtype)
             z = torch.randn((nz, no, nv), generator=g, device="cuda", dtype=dtype)
@@ -313,24 +414,26 @@ def phase2() -> dict:
             o0, v0 = nmo - no - nv, nmo - nv
             _check(checks, {"kernel": k1.NAME, "shape": label, "spin": "a", "dtype": dname,
                             "nz": nz, "naux": naux, "nmo": nmo, "nocc": no, "nvir": nv,
-                            "rtol": tol},
+                            "rtol": tol, "fixed_order": True},
                    lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, z, o0, v0)]),
                    lambda: torch.cat([x.flatten() for x in k1.df_exchange_plain(B, z, o0, v0)]),
                    False)
     return {"checks": checks}
 
 
-# the SCF's AO modes at TTM/STO-3G: (nao, naux, grid points), two density matrices
-AO_SHAPE = (182, 4412, 187644)
+# the SCF's AO modes: (label, nao, naux, grid points, dtypes), two density
+# matrices; TTM/STO-3G and TTM/dzp
+AO_SHAPES = (("ttm_ao", 182, 4412, 187644, BOTH), ("dzp_ao", 598, 3990, 187644, F64_ONLY))
 # the JAX functions each kernel computes in the SCF's Fock build
 SCF_REPLACES = {"df_exchange": "xtddft_tpu/scf/env.py:244",
                 "grid_rho1": "xtddft_tpu/xc/interface.py:53",
                 "grid_back": "xtddft_tpu/xc/interface.py:112"}
 
 
-def _ao_checks(checks, g, dtype):
-    """The SCF's Fock build on the kernels at the TTM shapes: K1 in AO mode
-    (t and K of two density matrices; timed and held against the single
+def _ao_checks(checks, g, dtype, label, nao, naux, npts):
+    """The SCF's Fock build on the kernels, in their fixed summation order
+    as the SCF runs them, K2 and K3 each beside its atomic order: K1 in AO mode (t
+    and K of two density matrices; timed and held against the single
     einsum on K, and checked untimed on (t, K)), K2 hermitian (four rows,
     and the value row alone, each against its single einsum), K3 with the
     AO table on both sides (no single call: a sum of three products)."""
@@ -339,7 +442,6 @@ def _ao_checks(checks, g, dtype):
     from xtddft_tpu_torch.kernels import grid_rho1 as k2
     from xtddft_tpu_torch.response import flops as fl
 
-    nao, naux, npts = AO_SHAPE
     nz = 2
     dname = str(dtype).split(".")[-1]
     isz = torch.empty((), dtype=dtype).element_size()
@@ -351,8 +453,8 @@ def _ao_checks(checks, g, dtype):
     del c
 
     def rec(name, mode, **kw):
-        return {"kernel": name, "shape": "ttm_ao", "mode": mode, "dtype": dname, "nz": nz,
-                "nao": nao, "naux": naux, "rtol": AO_RTOL[dname], **kw}
+        return {"kernel": name, "shape": label, "mode": mode, "dtype": dname, "nz": nz,
+                "nao": nao, "naux": naux, "rtol": AO_RTOL[dname], "fixed_order": True, **kw}
 
     _check(checks, rec(k1.NAME, "ao"), lambda: k1.df_exchange(B, dms, 0, 0)[1],
            lambda: k1.df_exchange_plain(B, dms, 0, 0)[1], True,
@@ -371,21 +473,24 @@ def _ao_checks(checks, g, dtype):
     # for a symmetric D the gradient rows are 2 sum grad(phi) D phi
     rows = torch.tensor([1.0, 2.0, 2.0, 2.0], device="cuda", dtype=dtype)
     _check(checks, rec(k2.NAME, "hermi", gc=npts),
-           lambda: k2.grid_rho1(ao, dms, 0, 0, hermi=True),
+           lambda: k2.grid_rho1(ao, dms, 0, 0, hermi=True, fixed_order=True),
            lambda: k2.grid_rho1_plain(ao, dms, 0, 0, hermi=True), True,
            fl.grid_ao_flops(nz, nao, npts), nbytes,
-           library=lambda: torch.einsum("c,cgi,xij,gj->xcg", rows, ao, dms, ao[0]))
+           library=lambda: torch.einsum("c,cgi,xij,gj->xcg", rows, ao, dms, ao[0]),
+           twin=lambda: k2.grid_rho1(ao, dms, 0, 0, hermi=True))
     _check(checks, rec(k2.NAME, "hermi_value_only", gc=npts),
-           lambda: k2.grid_rho1(ao, dms, 0, 0, ncomp=1, hermi=True),
+           lambda: k2.grid_rho1(ao, dms, 0, 0, ncomp=1, hermi=True, fixed_order=True),
            lambda: k2.grid_rho1_plain(ao, dms, 0, 0, ncomp=1, hermi=True), True,
            fl.grid_rho1_flops(nz, nao, nao, npts, 1),
            fl.grid_rho1_bytes(nz, nao, nao, npts, isz, 1, masked=False),
-           library=lambda: torch.einsum("gi,xij,gj->xg", ao[0], dms, ao[0])[:, None])
+           library=lambda: torch.einsum("gi,xij,gj->xg", ao[0], dms, ao[0])[:, None],
+           twin=lambda: k2.grid_rho1(ao, dms, 0, 0, ncomp=1, hermi=True))
     out = torch.zeros((nz, nao, nao), device="cuda", dtype=dtype)
     _check(checks, rec(k3.NAME, "ao", gc=npts),
-           lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_()).clone(),
+           lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_(), fixed_order=True).clone(),
            lambda: k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.zero_()).clone(), True,
-           fl.grid_ao_flops(nz, nao, npts), nbytes)
+           fl.grid_ao_flops(nz, nao, npts), nbytes,
+           twin=lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_()).clone())
     del ao, dwv, dwg, out, dms
     torch.cuda.empty_cache()
 
@@ -494,12 +599,12 @@ def phase7(mf0, e_phase3, k3_ms) -> dict:
     d_eps = float(np.abs(mf.mo_energy[occ] - np.asarray(ckpt["mo_energy"])[occ]).max())
     n = scf.cycles
     # the same SCF again, the device synchronized at each stage of a Fock
-    # build, for the split of a cycle; its cycle count may differ by a few:
-    # the kernels sum with atomics, and at 4814 Ha the energy test of 1e-11
-    # Ha sits at the rounding of those sums
+    # build, for the split of a cycle; the Fock build sums in a fixed order,
+    # so it must take the same cycles to the bitwise-same energy (at 4814 Ha
+    # the energy test of 1e-11 Ha sits at the rounding of those sums)
     scf.profile = True
     s = time.perf_counter()
-    scf.kernel()
+    mf_prof = scf.kernel()
     _sync()
     wall_profiled = time.perf_counter() - s
     n_prof = scf.cycles
@@ -512,6 +617,7 @@ def phase7(mf0, e_phase3, k3_ms) -> dict:
                          + e2 + mol.energy_nuc())
     rec = {"cycles": n, "converged": mf.converged, "scf_s": wall, "s_per_cycle": wall / n,
            "scf_profiled_s": wall_profiled, "cycles_profiled": n_prof,
+           "e_tot_profiled_minus_e_tot_ha": mf_prof.e_tot - mf.e_tot,
            "stage_s_per_cycle": {k: v / n_prof for k, v in stages.items()},
            "functional_s_per_cycle": (stages["xc"] - k3_s) / n_prof,
            "k3_s_per_cycle": k3_s / n_prof,
@@ -533,6 +639,9 @@ def phase7(mf0, e_phase3, k3_ms) -> dict:
     short = [k for k, v in launches.items() if v < n]
     if short:
         raise AssertionError(f"kernels not launched on every Fock build: {short} {launches}")
+    if not (n_prof == n and mf_prof.e_tot == mf.e_tot):
+        raise AssertionError(f"a second SCF on the same input took {n_prof} cycles to "
+                             f"{mf_prof.e_tot!r} Ha, the first {n} to {mf.e_tot!r} Ha")
 
     e_ref = np.asarray(golden["xtda_e_ev"])
     kernels.reset_launch_counts()
@@ -553,6 +662,229 @@ def phase7(mf0, e_phase3, k3_ms) -> dict:
     if idle:
         raise AssertionError(f"kernels not launched on the SCF's X-TDA: {idle}")
     rec["xtda"] = xt
+    return rec
+
+
+def _roks_gradient(scf, mf, va, vb):
+    """|g| of the Roothaan Fock of the potentials (va, vb) at mf's density,
+    the SCF's own convergence measure (`scf/driver.py`)."""
+    from xtddft_tpu_torch.scf.driver import _sym_orth
+
+    env = scf.env
+    S = env.S.cpu().numpy()
+    h = env.hcore.cpu().numpy()
+    da, db = mf.make_rdm1()
+    f = scf._roothaan_fock(h + va, h + vb, db, da - db, S)
+    X = _sym_orth(S)
+    return float(np.linalg.norm(X.T @ (f @ (da + db) @ S - S @ (da + db) @ f) @ X))
+
+
+def _pair_splits(e_ev, pairs):
+    """e[i + 1] - e[i] for the doubly degenerate (E) pairs (i, i + 1) of TTM's
+    D3 symmetry."""
+    return [float(e_ev[i + 1] - e_ev[i]) for i in pairs]
+
+
+def _solve_leg(name, run, want, golden, nroots, flops_per_build, failed, gate_ev=None):
+    """One response solve of phase 8: wall, cycles, builds/s, TFLOP/s and
+    launches; the gates: every root converged, the sorted roots within
+    ``gate_ev`` (default ``DZP_GATE_EV``) of ``want[0]`` (the JAX package's
+    f64 solve, `tools/ttm_dzp_ckpt_energy.py --solve`) and <dS^2> within
+    ``DZP_GATE_DS2`` of ``want[1]`` where given, osc >= 0.  ``golden``:
+    (energies, <dS^2> or None) of the JAX golden, printed beside the port's
+    with the splittings of the E pairs, which D3 symmetry makes degenerate.
+    A failed gate goes into ``failed``, which phase 8 raises on once every
+    leg has printed."""
+    from xtddft_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    s = time.perf_counter()
+    res = run()
+    _sync()
+    wall = time.perf_counter() - s
+    launches = kernels.launch_counts()
+    order = np.argsort(res.e_eV)
+    e = res.e_eV[order]
+    dev = e - np.sort(np.asarray(want[0]))[:nroots]
+    g = np.sort(np.asarray(golden[0]))[:nroots]
+    # the E pairs: neighbours within 2 meV in the port's spectrum
+    pairs = [i for i in range(len(e) - 1) if e[i + 1] - e[i] < 2e-3]
+    r = {"solve_s": wall, "cycles": res.cycles, "nroots": len(res.e),
+         "converged": res.converged, "max_dev_ev": float(np.abs(dev).max()),
+         "builds_per_s": res.cycles / wall,
+         "tflops": flops_per_build * res.cycles / wall / 1e12,
+         "flops_per_build": flops_per_build, "launches": launches,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "e_ev": e.tolist(),
+         "dev_ev": dev.tolist(), "golden_dev_ev": (e - g).tolist(),
+         "max_golden_dev_ev": float(np.abs(e - g).max()),
+         "e_pair_splits_ev": _pair_splits(e, pairs),
+         "golden_e_pair_splits_ev": _pair_splits(g, pairs)}
+    if res.osc is not None:
+        r["osc_min"] = float(np.min(res.osc))
+    if want[1] is not None:
+        ds2 = np.asarray(res.ds2)[order]
+        r["ds2"] = ds2.tolist()
+        r["max_dev_ds2"] = float(np.abs(ds2 - np.asarray(want[1])[np.argsort(want[0])]).max())
+        r["max_golden_dev_ds2"] = float(np.abs(
+            ds2 - np.asarray(golden[1])[np.argsort(golden[0])]).max())
+    _log(f"phase 8 {name}", json.dumps(r))
+    if not (res.converged and len(res.e) == nroots):
+        failed.append(f"TTM/dzp {name}: not {nroots}/{nroots} roots converged")
+    if not r["max_dev_ev"] < (DZP_GATE_EV if gate_ev is None else gate_ev):
+        failed.append(f"TTM/dzp {name} deviates from the JAX f64 solve by "
+                      f"{r['max_dev_ev']} eV")
+    if res.osc is not None and not np.all(res.osc >= -1e-12):
+        failed.append(f"TTM/dzp {name}: negative oscillator strength {r['osc_min']}")
+    if want[1] is not None and not r["max_dev_ds2"] < DZP_GATE_DS2:
+        failed.append(f"TTM/dzp {name}: <dS^2> off by {r['max_dev_ds2']}")
+    idle = [k for k, n in launches.items() if n <= 0]
+    if idle:
+        failed.append(f"kernels not launched on the dzp {name} path: {idle}")
+    return r, res
+
+
+def phase8(ref_small, rec: dict, vectors: pathlib.Path | None = None) -> dict:
+    """Production scale: TTM/dzp (598 AO), f64, through the public entry
+    points on one Env (``ref_small``: phase 3's STO-3G Reference, whose
+    orbitals start the SCF).  The response from the checkpoint (X-TDA, 20
+    roots; XSF-TDA SA=0, 10 roots), then the ROKS SCF from the STO-3G
+    checkpoint projected to dzp and X-TDA on its mean field; the gates are
+    listed with the ``DZP_*``
+    constants.  Fills ``rec`` leg by leg (so that a failed
+    gate leaves the numbers before it) and returns it; ``vectors``: also
+    write the two response legs' roots and eigenvectors (blocked layout)
+    there, for `tools/ttm_dzp_ckpt_energy.py --rayleigh`."""
+    import os
+
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.chem import Molecule, geometries
+    from xtddft_tpu_torch.methods.drivers import XSFTDA, XTDA
+    from xtddft_tpu_torch.response.flops import matvec_flops, scf_veff_flops, sf_matvec_flops
+    from xtddft_tpu_torch.response.reference_state import make_reference
+    from xtddft_tpu_torch.response.sigma_df import build_df_data
+    from xtddft_tpu_torch.scf import ROKS
+    from xtddft_tpu_torch.scf.checkpoint import load_mf
+    from xtddft_tpu_torch.scf.project import project_mo
+
+    golden = json.loads((ROOT / "tests/data/golden_ttm_dzp.json").read_text())
+    golden_xsf = json.loads((ROOT / "tests/data/golden_ttm_dzp_xsf.json").read_text())
+    ckpt_path = ROOT / "tests/data/ttm_dzp_ckpt.npz"
+    ckpt = np.load(ckpt_path)
+    t = {"host_cores": os.cpu_count()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mf0 = load_mf(str(ckpt_path), df=True, device="cuda", dtype=torch.float64)
+    env, small = mf0.env, ref_small.env
+    held = {}
+    steps = (
+        ("grid", lambda: env.grid),
+        ("eval_ao", lambda: env.ao),
+        ("j3c", env.df_j3c_host),
+        ("metric", env.df_isqrt_host),
+        ("dressing", env.df_B),
+        ("one_electron", lambda: (env.S, env.hcore)),
+        ("one_electron_props", lambda: (env.dip, env.ipovlp, env.rxp)),
+        ("make_reference", lambda: held.setdefault("ref", make_reference(mf0))),
+        ("build_df_data", lambda: build_df_data(held["ref"])),
+    )
+    for name, step in steps:
+        s = time.perf_counter()
+        step()
+        _sync()
+        t[name] = time.perf_counter() - s
+    t["host_setup"] = time.perf_counter() - t0
+    ref = held.pop("ref")
+    naux, ngrid = env.aux_layout.nao, int(env.grid.size)
+    dims = {"nao": env.nao, "naux": naux, "ngrid": ngrid, "nc": ref.nc, "no": ref.no,
+            "nv": ref.nv, "j3c_released": not env._df_j3c_cache,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _log("phase 8 setup", json.dumps({**dims, **t}))
+    rec.update(dims, setup_s=t)
+    failed = []
+    # the checkpoint's own density under the port's Fock build
+    mol = Molecule.from_atoms(geometries.ttm_vacuum, basis="dzp", spin=1)
+    if mol != env.mol:
+        raise AssertionError("ttm_vacuum is not the molecule of tests/data/ttm_dzp_ckpt.npz")
+    scf = ROKS(mol, xc="b3lyp", grid_level=1, df=True, aux_mode="jk", env=env)
+    d0 = mf0.make_rdm1()
+    va, vb, e2 = scf._veff_and_exc(d0[0], d0[1])
+    e_ckpt_density = (float(np.einsum("pq,qp->", env.hcore.cpu().numpy(), d0[0] + d0[1]))
+                      + e2 + mol.energy_nuc())
+    g_ckpt = _roks_gradient(scf, mf0, va, vb)
+    rec["ckpt_density"] = {"e_minus_ckpt_e_tot_ha": e_ckpt_density - float(ckpt["e_tot"]),
+                           "e_minus_jax_host_ha": e_ckpt_density - DZP_JAX_E_OF_CKPT_DENSITY,
+                           "gnorm": g_ckpt}
+    _log("phase 8 checkpoint density", json.dumps(rec["ckpt_density"]))
+
+    n_o, n_v = ref.nc + ref.no, ref.no + ref.nv
+    rec["xtda"], res_x = _solve_leg(
+        "xtda", lambda: XTDA(ref, nstates=20, backend="df").kernel(),
+        (DZP_JAX_XTDA_EV, None), (golden["e_refined_ev"], None), 20,
+        matvec_flops(ref.nc, ref.no, ref.nv, naux, ngrid, 20), failed)
+    # the flip golden's own arguments (bench.py's production flip leg)
+    rec["xsf"], res_f = _solve_leg(
+        "xsf", lambda: XSFTDA(ref, SA=int(golden_xsf["SA"]), backend="df").kernel(
+            nstates=10, foo=1.0, fglobal=float(golden_xsf["fglobal"]), remove=True),
+        (DZP_JAX_XSF_EV, DZP_JAX_XSF_DS2), (golden_xsf["e_refined_ev"], golden_xsf["ds2"]), 10,
+        sf_matvec_flops(n_o, n_v, naux, ngrid, 10), failed)
+    if vectors is not None:
+        np.savez(vectors, xtda_e=res_x.e, xtda_v=res_x.v, xsf_e=res_f.e, xsf_v=res_f.v,
+                 xsf_ds2=res_f.ds2)
+    del res_x, res_f
+
+    # the SCF from the STO-3G solution projected to dzp
+    S = env.S.cpu().numpy()
+    s = time.perf_counter()
+    init = project_mo(ref_small.mf.mo_coeff, small.layout, env.layout, s_big=S)
+    t_project = time.perf_counter() - s
+    # synchronized at each stage of a Fock build: the split of a cycle (a
+    # dzp cycle is long beside the synchronizations)
+    scf.profile = True
+    kernels.reset_launch_counts()
+    s = time.perf_counter()
+    mf = scf.kernel(init=init)
+    _sync()
+    wall = time.perf_counter() - s
+    launches = kernels.launch_counts()
+    n = scf.cycles
+    occ = np.asarray(ckpt["mo_occ"]) > 0
+    d_e = mf.e_tot - float(ckpt["e_tot"])
+    d_eps = float(np.abs(mf.mo_energy[occ] - np.asarray(ckpt["mo_energy"])[occ]).max())
+    stages = {k: v / n for k, v in scf.stage_seconds.items()}
+    fl = scf_veff_flops(naux, env.nao, ngrid)
+    sc = {"cycles": n, "converged": mf.converged, "scf_s": wall, "s_per_cycle": wall / n,
+          "stage_s_per_cycle": stages, "k1_share_of_cycle": stages["jk"] / (wall / n),
+          "project_s": t_project, "launches": launches,
+          "e_tot": mf.e_tot, "de_vs_ckpt_ha": d_e,
+          "de_vs_jax_host_ha": mf.e_tot - DZP_JAX_E_OF_CKPT_DENSITY, "max_deps_occ_ha": d_eps,
+          "flops_per_cycle": fl, "k1_tflops": fl["k1"] / stages["jk"] / 1e12,
+          "e_tot_minus_e_of_ckpt_density_ha": mf.e_tot - e_ckpt_density}
+    _log("phase 8 scf", json.dumps(sc))
+    if not mf.converged:
+        failed.append(f"TTM/dzp SCF did not converge in {n} cycles")
+    if not abs(sc["de_vs_jax_host_ha"]) <= DZP_SCF_GATE_HA:
+        failed.append(f"TTM/dzp SCF energy off the JAX host engine's value by "
+                      f"{sc['de_vs_jax_host_ha']} Ha")
+    if not mf.e_tot <= e_ckpt_density:
+        failed.append(f"TTM/dzp SCF energy above that of the checkpoint's density by "
+                      f"{sc['e_tot_minus_e_of_ckpt_density_ha']} Ha")
+    if not d_eps <= DZP_SCF_GATE_EPS_HA:
+        failed.append(f"TTM/dzp SCF occupied orbital energies off by {d_eps} Ha")
+    short = [k for k, v in launches.items() if v < n]
+    if short:
+        failed.append(f"kernels not launched on every dzp Fock build: {short} {launches}")
+    rec["scf"] = sc
+    # on a mean field re-converged under the port's own Fock build: the
+    # roots of the checkpoint's within 2e-3 eV (DZP_SCF_XTDA_GATE_EV)
+    rec["scf_xtda"], res = _solve_leg(
+        "scf_xtda", lambda: XTDA(mf, nstates=5, backend="df").kernel(),
+        (DZP_JAX_XTDA_EV[:5], None), (golden["e_refined_ev"], None), 5,
+        matvec_flops(ref.nc, ref.no, ref.nv, naux, ngrid, 5), failed, gate_ev=DZP_SCF_XTDA_GATE_EV)
+    rec["scf_xtda"]["max_dev_vs_ckpt_xtda_ev"] = float(
+        np.abs(res.e_eV - np.asarray(rec["xtda"]["e_ev"][:5])).max())
+    if failed:
+        raise AssertionError("phase 8 (TTM/dzp): " + "; ".join(failed))
     return rec
 
 
@@ -740,24 +1072,54 @@ def phase6(data) -> dict:
     return rec
 
 
+def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
+    """Phases 0-8 into ``record``, in the order that lets the later ones
+    reuse what the earlier built; the seconds since the start after each."""
+    def done(name):
+        _log(f"{name} done at {time.perf_counter() - t_start:.1f} s")
+
+    record["card"] = phase0()
+    record["builds_s"] = phase1()
+    done("phase 1")
+    record["kernels"] = phase2()
+    done("phase 2")
+    record["ttm"], ref = phase3()
+    done("phase 3")
+    record["ttm_flip"] = phase5(ref)
+    done("phase 5")
+    k3_ao = [c for c in record["kernels"]["checks"] if c["kernel"] == "grid_back"
+             and c["shape"] == "ttm_ao" and c["dtype"] == "float64"][0]
+    record["scf"] = phase7(ref.mf, record["ttm"]["e_ev"], k3_ao["ms"])
+    done("phase 7")
+    vectors = None if out is None else pathlib.Path(out).with_name(
+        pathlib.Path(out).stem + "_dzp_vectors.npz")
+    if vectors is not None:
+        vectors.parent.mkdir(parents=True, exist_ok=True)
+    phase8(ref, record.setdefault("dzp", {}), vectors)
+    done("phase 8")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["bench"], data = phase4()
+    done("phase 4")
+    record["bench_flip"] = phase6(data)
+    done("phase 6")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
-    card = phase0()
-    record = {"card": card, "builds_s": phase1(), "kernels": phase2()}
-    record["ttm"], ref = phase3()
-    record["ttm_flip"] = phase5(ref)
-    k3_ao = [c for c in record["kernels"]["checks"] if c["kernel"] == "grid_back"
-             and c["shape"] == "ttm_ao" and c["dtype"] == "float64"][0]
-    record["scf"] = phase7(ref.mf, record["ttm"]["e_ev"], k3_ao["ms"])
-    del ref
-    torch.cuda.empty_cache()
-    record["bench"], data = phase4()
-    record["bench_flip"] = phase6(data)
-    del data
+    record = {}
+    try:
+        _run_phases(record, t_start, args.out)
+    finally:
+        if args.out:  # every number so far, also when a phase failed
+            pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            pathlib.Path(args.out).write_text(json.dumps(record, indent=1))
+    card = record["card"]
 
     from xtddft_tpu_torch import kernels
 
@@ -777,6 +1139,14 @@ def main(argv=None) -> int:
         ao_check = [c for c in record["kernels"]["checks"]
                     if c["kernel"] == m.NAME and c["shape"] == "ttm_ao"
                     and c["dtype"] == "float64" and c["mode"] in ("ao", "hermi")][0]
+        # the production shapes, f64: the dzp X-TDA alpha block (K2 and K3 on
+        # a jvp group's span) and the dzp SCF's AO mode
+        dzp_check = [c for c in record["kernels"]["checks"]
+                     if c["kernel"] == m.NAME and c["shape"] == "dzp" and c.get("spin") == "a"][-1]
+        dzp_ao_check = [c for c in record["kernels"]["checks"]
+                        if c["kernel"] == m.NAME and c["shape"] == "dzp_ao"
+                        and c["mode"] in ("ao", "hermi")][0]
+        dzp = record["dzp"]
         entries.append({
             "name": m.NAME, "route": m.ROUTE, "source": m.SOURCE, "replaces": m.REPLACES,
             "launches": record["ttm"]["launches"][m.NAME],
@@ -790,11 +1160,21 @@ def main(argv=None) -> int:
             "launches_scf_xtda": record["scf"]["xtda"]["launches"][m.NAME],
             **{f"scf_{k}": ao_check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")},
+            # null where the kernel has no atomic order (K1)
+            "scf_fixed_order_cost": ao_check.get("fixed_order_cost"),
+            "fixed_order_cost": main_check.get("fixed_order_cost"),
+            "launches_dzp_xtda": dzp["xtda"]["launches"][m.NAME],
+            "launches_dzp_xsf": dzp["xsf"]["launches"][m.NAME],
+            "launches_dzp_scf": dzp["scf"]["launches"][m.NAME],
+            "launches_dzp_scf_xtda": dzp["scf_xtda"]["launches"][m.NAME],
+            **{f"dzp_{k}": dzp_check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")},
+            **{f"dzp_scf_{k}": dzp_ao_check[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "library_ms")},
         })
     record["total_s"] = time.perf_counter() - t_start
     _log("total seconds", record["total_s"])
     if args.out:
-        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(record, indent=1))
     print(card["nvidia_smi"])
     print(json.dumps({"kernels": entries}))

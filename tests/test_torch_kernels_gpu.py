@@ -1,7 +1,7 @@
 """The CUDA kernels K1-K3, every mode, against their plain torch versions, on a GPU.
 
 f64 to relative 1e-11 and f32 to 1e-4 of the largest entry (the summation
-order differs).  Skips without a card.  The machine with the card has no
+order differs); the SCF's fixed-order modes also repeat bitwise.  Skips without a card.  The machine with the card has no
 JAX, so this file imports none; run it there without the repository's
 conftest (which imports the JAX package):
 
@@ -204,6 +204,73 @@ def test_ao_modes_match_plain(cuda, nao, dtype, rtol):
     _rel_close(k3.grid_back(dwv, dwg, ao, 0, 0, out.clone()),
                k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.clone()), rtol)
     assert (k1.launches, k2.launches, k3.launches) == tuple(n + 1 for n in before)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nao", [183, 598])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_fixed_order_ao_modes_repeat_bitwise(cuda, nao, dtype, rtol):
+    """The SCF's Fock build sums in a fixed order: K1 in AO mode, K2 hermitian
+    and K3 on the AO table, launched twice each on the same inputs, give the
+    bitwise-same output, within the tolerance of the plain version.  At these
+    sizes K1 and K3 split their reductions across blocks (18-190 output tiles
+    against two waves of blocks), and K2 adds the partial densities of 3-10
+    row tiles per matrix into each point."""
+    g = torch.Generator(cuda).manual_seed(7)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda, dtype=dtype)
+
+    naux, gc = 301, 4099
+    B = randn(naux, nao, nao)
+    B = (B + B.transpose(1, 2)).mul_(0.5)
+    c = randn(2, nao, 9)
+    dms = c @ c.transpose(1, 2)
+    ao = randn(4, gc, nao)
+    dwv, dwg = randn(2, gc), randn(2, 3, gc)
+    before = (k1.launches, k2.launches, k3.launches)
+    runs = [k1.df_exchange(B, dms, 0, 0) for _ in range(2)]
+    tp, Kp = k1.df_exchange_plain(B, dms, 0, 0)
+    for t, K in runs:
+        _rel_close(t, tp, rtol)
+        _rel_close(K, Kp, rtol)
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    del B, runs, tp, Kp
+    rho = [k2.grid_rho1(ao, dms, 0, 0, hermi=True, fixed_order=True) for _ in range(2)]
+    _rel_close(rho[0], k2.grid_rho1_plain(ao, dms, 0, 0, hermi=True), rtol)
+    assert torch.equal(rho[0], rho[1])
+    out = torch.zeros((2, nao, nao), device=cuda, dtype=dtype)
+    vm = [k3.grid_back(dwv, dwg, ao, 0, 0, out.clone(), fixed_order=True) for _ in range(2)]
+    _rel_close(vm[0], k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.clone()), rtol)
+    assert torch.equal(vm[0], vm[1])
+    assert (k1.launches, k2.launches, k3.launches) == tuple(n + 2 for n in before)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11), (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_k1_at_the_dzp_main_shape(cuda, dtype, rtol):
+    """K1's X-TDA mode at the TTM/dzp alpha block (naux 3990, nmo 598, nocc
+    137, nvir 461, 20 trial vectors: 11.4 GB of B in f64), in several aux
+    chunks of its T buffer, against the plain version; K1 sums in its fixed
+    order in every mode, so a second launch repeats the first bitwise."""
+    g = torch.Generator(cuda).manual_seed(8)
+    naux, nmo, nocc, nz = 3990, 598, 137, 20
+    G = torch.randn((naux, nmo, 8), generator=g, device=cuda, dtype=dtype)
+    B = torch.bmm(G, G.transpose(1, 2)) / (naux * nmo * 8) ** 0.5
+    del G
+    z = torch.randn((nz, nocc, nmo - nocc), generator=g, device=cuda, dtype=dtype)
+    assert k1.plan_aux_chunk(naux, nz, nocc, nmo - nocc, z.element_size()) < naux
+    t, K = k1.df_exchange(B, z, 0, nocc)
+    t2, K2 = k1.df_exchange(B, z, 0, nocc)
+    assert torch.equal(t, t2) and torch.equal(K, K2)
+    del t2, K2
+    tp, Kp = k1.df_exchange_plain(B, z, 0, nocc)
+    _rel_close(t, tp, rtol)
+    _rel_close(K, Kp, rtol)
     torch.cuda.synchronize()
 
 

@@ -32,8 +32,12 @@
 //     writes T in the [P, j, x*nvir + a] layout (rows padded to 16 bytes)
 //     that stage B reads;
 //   - stage B: M = nocc, N = nz*nvir, K = (P, j) over the chunk, so B_oo is
-//     read once per N tile; split-K with atomics into the zeroed K fills the
-//     card when M*N is small (TTM: 137 x 450);
+//     read once per N tile; split-K fills the card when M*N is small
+//     (TTM: 137 x 450): each split writes its partial K to its own slice of
+//     the workspace W and the slices are added to K in split order after
+//     each chunk, so a launch sums in the same order every time; with one
+//     split each block adds its tile into K directly (one add per element
+//     and chunk, the chunks in stream order);
 //   - t[x, P], 2*nz*naux*nocc*nvir flops: a reduction kernel in which a
 //     block owns 4 aux indices and 8 vectors.
 // The T round trip costs 2*chunk*nocc*nz*nvir elements per chunk (~24 GB
@@ -46,8 +50,10 @@
 // above (ld columns, shift leading zero rows); t (nz, naux) is written
 // unless null;
 // K (nz, nocc, nvir) is accumulated (the caller zeroes it); Tb holds
-// chunk*nocc rows of np elements.  Launches on the caller's stream,
-// allocates nothing, returns the first CUDA error.
+// chunk*nocc rows of np elements; W holds wcap elements, at least one
+// slice of nz*nocc*nvir.  Launches on the caller's stream, allocates
+// nothing, returns the first CUDA error.  The Coulomb t kernel and stage A
+// store each element once, so t and K are bitwise repeatable.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +129,8 @@ struct Args {
   T* K;
   T* Tb;  // [q][j][n = x*nvir + a], row stride np
   int np;
+  T* W;  // the split partials' workspace, wcap elements
+  int64_t wcap;
 };
 
 // stage A: T[q, j, x, a] = sum_b z[x, j, b] B[P0+q, v0+a, v0+b], m = x*nocc + j.
@@ -175,6 +183,7 @@ struct ExchangeBack {
   Args<T> a;
   int P0;
   bool vecA;
+  T* W;  // this launch's slices of the workspace (null: one split, into K)
 
   __device__ void load(T* stage, int q, int kt, int m0, int n0) const {
     const int k0 = kt * Core::BK, nocc = a.nocc, o0 = a.o0, N_ = N, np = a.np;
@@ -196,7 +205,11 @@ struct ExchangeBack {
 
   __device__ void store(int, int m, int n, T v) const {
     const int x = n / a.nvir, c = n - x * a.nvir;
-    atomicAdd(&a.K[((int64_t)x * a.nocc + m) * a.nvir + c], v);
+    const int64_t i = ((int64_t)x * a.nocc + m) * a.nvir + c;
+    if (W != nullptr)
+      W[blockIdx.y * (int64_t)M * N + i] = v;
+    else
+      a.K[i] += v;  // the block owns this element
   }
 };
 
@@ -208,6 +221,8 @@ int launch(const Args<T>& g, int chunk, void* stream_ptr) {
       g.ldz < g.nz * g.nocc || g.np < g.nz * g.nvir ||
       !gt::aligned16(g.zT, {}) || !gt::aligned16(g.Tb, {}))
     return (int)cudaErrorInvalidValue;
+  const int64_t kel = (int64_t)g.nz * g.nocc * g.nvir;  // one slice of W
+  if (g.W == nullptr || g.wcap < kel) return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaSuccess;
   if (g.t != nullptr) {
@@ -231,8 +246,8 @@ int launch(const Args<T>& g, int chunk, void* stream_ptr) {
     const HalfTransform<CoreA> pa{g.nz * g.nocc, g.nvir, kv, nq, 0, g, P0, vec_vv};
     err = gt::launch<CoreA>(pa, stream);
     if (err != cudaSuccess) break;
-    const ExchangeBack<CoreB> pb{g.nocc, g.nz * g.nvir, ko, nq, 0, g, P0, vec_oo};
-    err = gt::launch<CoreB>(pb, stream);
+    const ExchangeBack<CoreB> pb{g.nocc, g.nz * g.nvir, ko, nq, 0, g, P0, vec_oo, nullptr};
+    err = gt::launch_fixed<CoreB>(pb, g.W, g.wcap, kel, g.K, stream);
   }
   return (int)err;
 }
@@ -244,19 +259,21 @@ extern "C" {
 int df_exchange_f64(const double* B, long long sP, long long sp, long long sq, const double* Bv,
                     long long vP, long long vp, long long vq, int naux, const double* z,
                     const double* zT, int ldz, int shift, int nz, int nocc, int nvir, int o0,
-                    int v0, double* t, double* K, double* Tb, int np, int chunk, void* stream) {
+                    int v0, double* t, double* K, double* Tb, int np, int chunk, double* W,
+                    long long wcap, void* stream) {
   return launch<double>({B, sP, sp, sq, Bv, vP, vp, vq, naux, z, zT, ldz, shift, nz, nocc, nvir,
-                         o0, v0, t, K, Tb, np},
+                         o0, v0, t, K, Tb, np, W, wcap},
                         chunk, stream);
 }
 
 int df_exchange_f32(const float* B, long long sP, long long sp, long long sq, const float* Bv,
                     long long vP, long long vp, long long vq, int naux, const float* z,
                     const float* zT, int ldz, int shift, int nz, int nocc, int nvir, int o0,
-                    int v0, float* t, float* K, float* Tb, int np, int chunk, void* stream) {
+                    int v0, float* t, float* K, float* Tb, int np, int chunk, float* W,
+                    long long wcap, void* stream) {
   return launch<float>({B, sP, sp, sq, Bv, vP, vp, vq, naux, z, zT, ldz, shift, nz, nocc, nvir,
-                         o0, v0, t, K, Tb, np},
-                        chunk, stream);
+                        o0, v0, t, K, Tb, np, W, wcap},
+                       chunk, stream);
 }
 
 const char* xk_error_string(int code) {

@@ -38,7 +38,11 @@
 //   gather (the occupied orbitals of each trial vector) and K1's operands
 //   come in both orientations; `cp.async` takes them all.
 // - Split-K: a launch may cut the step range of one output tile across
-//   blocks; such problems add their tile into a zeroed output with atomics.
+//   blocks; such problems add their tile into a zeroed output with atomics,
+//   or, in the fixed-order mode, each split (blockIdx.y) writes its tile to
+//   its own slice of a workspace and `sum_slices` adds the slices in split
+//   order: the same inputs then give the bitwise-same output on every
+//   launch.  `plan` caps the split at the slices the workspace holds.
 // - Tile epilogues: a problem may take the whole accumulator tile at once
 //   (kTile) instead of one element at a time; `dot_groups` contracts it
 //   with a table tile in shared memory over groups of RG rows (K2 reduces
@@ -494,19 +498,33 @@ __global__ void __launch_bounds__(Core::NT, sizeof(typename Core::Elem) == 4 ? 2
   if (s0 < s1) run_tile<Core>(p, m0, n0, s0, s1);
 }
 
-// Launch Prob on the core: one block per output tile and split; the
-// splits are chosen so that about two waves of blocks fill the card
-// (fewer for problems with many tiles).  A problem without kReduce is
-// split on q boundaries only.
+// How a launch cuts its work: output tiles (blockIdx.x), splits of the
+// step range (blockIdx.y) and the steps per split.
+struct Split {
+  int64_t tiles = 0, split = 1, per = 0;
+};
+
+// dynamic shared memory of a block: the stages, or the tile epilogue's need
+template <class Core, class Prob>
+size_t smem_bytes(const Prob& p) {
+  size_t elems = (size_t)Core::STAGES * (Core::AB_ELEMS + p.extra);
+  if constexpr (Prob::kTile) elems = std::max(elems, (size_t)p.epi);
+  return sizeof(typename Prob::T) * elems;
+}
+
+// Plan Prob on the core: one block per output tile and split; the splits
+// are chosen so that about two waves of blocks fill the card (fewer for
+// problems with many tiles), at most max_split of them (>= 1: the slices a
+// fixed-order workspace holds).  A problem without kReduce is split on q
+// boundaries only.  The split depends on the shapes, the device and the
+// shared-memory size alone, so a problem planned twice is cut the same way.
 // The shared-memory attribute and the resident blocks per SM are set and
 // asked once per instantiation, device and shared-memory size (K3's size
 // moves with the vectors a row tile touches), not before every launch.
 template <class Core, class Prob>
-cudaError_t launch(const Prob& p, cudaStream_t stream) {
+cudaError_t plan(const Prob& p, int64_t max_split, Split& g) {
   const auto kern = gemm_kernel<Core, Prob>;
-  size_t elems = (size_t)Core::STAGES * (Core::AB_ELEMS + p.extra);
-  if constexpr (Prob::kTile) elems = std::max(elems, (size_t)p.epi);
-  const size_t smem = sizeof(typename Prob::T) * elems;
+  const size_t smem = smem_bytes<Core>(p);
   struct Fit {
     int dev = -1;
     size_t smem = 0;
@@ -516,6 +534,7 @@ cudaError_t launch(const Prob& p, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (max_split < 1) return cudaErrorInvalidValue;
   if (fit.dev != dev || fit.smem != smem) {
     int nsm = 0, per_sm = 0;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -535,12 +554,65 @@ cudaError_t launch(const Prob& p, cudaStream_t stream) {
   int64_t split = (target + tiles - 1) / tiles;
   // each split of a reduction keeps at least 4 steps of work
   if (Prob::kReduce) split = std::min<int64_t>(split, std::max<int64_t>(1, pieces / 4));
+  split = std::min<int64_t>(split, max_split);
   split = std::max<int64_t>(1, std::min<int64_t>(split, std::min<int64_t>(pieces, 65535)));
   const int64_t per = (pieces + split - 1) / split * unit;
-  split = ((int64_t)p.nq * p.nkt + per - 1) / per;
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  kern<<<dim3((unsigned)tiles, (unsigned)split), Core::NT, smem, stream>>>(p, (int)per);
+  g = {tiles, ((int64_t)p.nq * p.nkt + per - 1) / per, per};
+  return cudaSuccess;
+}
+
+template <class Core, class Prob>
+cudaError_t run(const Prob& p, const Split& g, cudaStream_t stream) {
+  gemm_kernel<Core, Prob><<<dim3((unsigned)g.tiles, (unsigned)g.split), Core::NT,
+                            smem_bytes<Core>(p), stream>>>(p, (int)g.per);
   return cudaGetLastError();
+}
+
+// plan, then run: the atomic mode's launch
+template <class Core, class Prob>
+cudaError_t launch(const Prob& p, cudaStream_t stream) {
+  Split g;
+  const cudaError_t err = plan<Core>(p, 65535, g);
+  return err != cudaSuccess ? err : run<Core>(p, g, stream);
+}
+
+// out[e] += sum_{s < ns} w[s * n + e] for e < n, the slices added in s
+// order: the fixed-order mode's sum of the partial tiles of a split launch
+template <typename T>
+__global__ void __launch_bounds__(256)
+    sum_slices_kernel(const T* __restrict__ w, int64_t n, int ns, T* __restrict__ out) {
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    T s = w[e];
+    for (int k = 1; k < ns; ++k) s += w[k * n + e];
+    out[e] += s;
+  }
+}
+
+template <typename T>
+cudaError_t sum_slices(const T* w, int64_t n, int64_t ns, T* out, cudaStream_t stream) {
+  const int64_t blocks = std::min<int64_t>((n + 255) / 256, 65535);
+  sum_slices_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(w, n, (int)ns, out);
+  return cudaGetLastError();
+}
+
+// The launch of a kReduce problem whose store, where its member W is set,
+// writes the tile of split s to W[s * slice + (its index in out)] instead
+// of adding it into out.  W null: atomics.  Else the fixed-order mode:
+// the split is capped by the slices W holds (wcap elements), one split
+// stores directly (one add per element), more write their slices and
+// `sum_slices` adds them to out in split order.
+template <class Core, class Prob>
+cudaError_t launch_fixed(Prob p, typename Prob::T* W, int64_t wcap, int64_t slice,
+                         typename Prob::T* out, cudaStream_t stream) {
+  Split g;
+  cudaError_t err = plan<Core>(p, W != nullptr ? wcap / slice : 65535, g);
+  if (err != cudaSuccess) return err;
+  p.W = g.split > 1 ? W : nullptr;
+  err = run<Core>(p, g, stream);
+  if (err == cudaSuccess && p.W != nullptr) err = sum_slices(W, slice, g.split, out, stream);
+  return err;
 }
 
 // 16-byte runs are safe when every run starts on a 16-byte boundary: a

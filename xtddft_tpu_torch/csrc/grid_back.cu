@@ -37,14 +37,19 @@
 // elements, GBs for one jvp group).  A sigma calls it once per point span;
 // the point range is split across blocks (atomics into ``out``) when the
 // (x, o) x v tiles alone cannot fill the card, as at TTM (nvir 45 is one
-// N tile, so F is built once per point).  Each table is read in 16-byte
+// N tile, so F is built once per point); in the fixed-order mode (a
+// workspace W given) each split writes its tile to its own slice of W and
+// the slices are added to ``out`` in split order, so that the same inputs
+// give the bitwise-same sum on every launch (one split stores directly:
+// one add per element).  Each table is read in 16-byte
 // runs along the orbital index where its strides allow (rows padded per
 // vector, columns from an aligned start, see GridBack); else one element at
 // a time.
 //
 // Layout: dwv (nz, gc) and dwg (nz, 3, gc; null selects NC = 1) contiguous;
 // phi_o, phi_v any strided (>= NC, gc, nmo) views (strides oc, og, om and vc,
-// vg, vm); out (nz, nocc, nvir) contiguous, accumulated.  Launches on the
+// vg, vm); out (nz, nocc, nvir) contiguous, accumulated; W (null: atomics)
+// holds wcap elements, at least one slice of nz*nocc*nvir.  Launches on the
 // caller's stream, allocates nothing, returns the first CUDA error.
 
 #include <cuda_runtime.h>
@@ -75,6 +80,7 @@ struct GridBack {
   int NX;  // vectors x one row tile can touch
   bool veco, vecv;
   T* out;
+  T* W;  // this launch's slices of the workspace (null: atomics into out)
 
   // stage: A slices [c][k][m] (po_c[g, o], rewritten into F_c), B slices
   // [c][k][n] (pv_c[g, v]), then dw[(c * BK + k) * NX + xi]
@@ -141,15 +147,20 @@ struct GridBack {
 
   __device__ void store(int, int m, int n, T v) const {
     const int x = m / noccp, o = m - x * noccp;
-    if (o < nocc && n >= shift)
-      atomicAdd(&out[((int64_t)x * nocc + o) * nvir + n - shift], v);
+    if (o >= nocc || n < shift) return;
+    const int64_t i = ((int64_t)x * nocc + o) * nvir + n - shift;
+    if (W != nullptr)
+      W[blockIdx.y * (int64_t)nz * nocc * nvir + i] = v;
+    else
+      atomicAdd(&out[i], v);
   }
 };
 
 template <typename T, int NC>
 int launch_nc(const T* dwv, const T* dwg, const T* phio, long long oc, long long og,
               long long om, const T* phiv, long long vc, long long vg, long long vm, int gc,
-              int nz, int nocc, int nvir, int o0, int v0, T* out, void* stream) {
+              int nz, int nocc, int nvir, int o0, int v0, T* out, T* W, int64_t wcap,
+              void* stream) {
   // the same stage size in both modes: NC slices of 32 / NC points
   using Core = gt::Core<T, 32 / NC, NC, 3>;
   constexpr int V = Core::VEC;
@@ -162,21 +173,24 @@ int launch_nc(const T* dwv, const T* dwg, const T* phio, long long oc, long long
   const int extra = (NC * Core::BK * nx + V - 1) / V * V;  // keeps each stage 16-byte aligned
   const GridBack<Core, NC> p{nz * noccp, shift + nvir, (gc + Core::BK - 1) / Core::BK, 1, extra,
                              dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, noccp,
-                             nvir, o0, v0, shift, nx, veco, vecv, out};
-  return (int)gt::launch<Core>(p, reinterpret_cast<cudaStream_t>(stream));
+                             nvir, o0, v0, shift, nx, veco, vecv, out, nullptr};
+  return (int)gt::launch_fixed<Core>(p, W, wcap, (int64_t)nz * nocc * nvir, out,
+                                     reinterpret_cast<cudaStream_t>(stream));
 }
 
 template <typename T>
 int launch(const T* dwv, const T* dwg, const T* phio, long long oc, long long og, long long om,
            const T* phiv, long long vc, long long vg, long long vm, int gc, int nz, int nocc,
-           int nvir, int o0, int v0, T* out, void* stream) {
-  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0) return (int)cudaErrorInvalidValue;
+           int nvir, int o0, int v0, T* out, T* W, long long wcap, void* stream) {
+  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 ||
+      (W != nullptr && wcap < (int64_t)nz * nocc * nvir))
+    return (int)cudaErrorInvalidValue;
   // a null dwg is the value-only mode
   if (dwg != nullptr)
     return launch_nc<T, 4>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                           v0, out, stream);
+                           v0, out, W, wcap, stream);
   return launch_nc<T, 1>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                         v0, out, stream);
+                         v0, out, W, wcap, stream);
 }
 
 }  // namespace
@@ -186,17 +200,17 @@ extern "C" {
 int grid_back_f64(const double* dwv, const double* dwg, const double* phio, long long oc,
                   long long og, long long om, const double* phiv, long long vc, long long vg,
                   long long vm, int gc, int nz, int nocc, int nvir, int o0, int v0,
-                  double* out, void* stream) {
+                  double* out, double* W, long long wcap, void* stream) {
   return launch<double>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                        v0, out, stream);
+                        v0, out, W, wcap, stream);
 }
 
 int grid_back_f32(const float* dwv, const float* dwg, const float* phio, long long oc,
                   long long og, long long om, const float* phiv, long long vc, long long vg,
                   long long vm, int gc, int nz, int nocc, int nvir, int o0, int v0,
-                  float* out, void* stream) {
+                  float* out, float* W, long long wcap, void* stream) {
   return launch<float>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                       v0, out, stream);
+                       v0, out, W, wcap, stream);
 }
 
 const char* xk_error_string(int code) {

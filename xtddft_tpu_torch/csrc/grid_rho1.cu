@@ -52,7 +52,12 @@
 // adding the sum of each trial vector's rows into the zeroed output with
 // one atomic (times the mask) when the vector changes; tiles of the other
 // rows and splits of the k range add likewise.  The next component's copy
-// flies during the walk.
+// flies during the walk.  In the fixed-order mode (a workspace W given) the
+// walk stores each sum in its own slot instead, one per split, vector and
+// half row tile (64 or 32 rows) the vector spans, and a second kernel adds
+// the slots in a fixed order: the same inputs then give the bitwise-same
+// density on every launch (the SCF's energy test sits at the rounding of
+// these sums).
 // The rows of each trial vector are padded to a multiple of the group (R),
 // so that no group and no 16-byte run crosses two vectors, and start at a
 // shifted orbital (the shift zero rows of A), so that the table's runs
@@ -74,8 +79,9 @@
 // row group (4 in f32, 8 in f64), so <= o0 and sv <= v0 the shifts; vu puts
 // the value row on u; hermi selects the hermitian mode (za alone, phio ==
 // phiv); mask (gc,) holds 0/1 in the working type, or is null; out (nz, NC,
-// gc) is accumulated (the caller zeroes it).  Launches on the caller's
-// stream, allocates nothing, returns the first CUDA error.
+// gc) is accumulated (the caller zeroes it); W (null: atomics) holds wcap
+// elements, at least one split's slots.  Launches on the caller's stream,
+// allocates nothing, returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,6 +123,8 @@ struct Rho1Gemm {
   bool vecA, vecB, vecE;
   const T* mask;
   T* out;
+  T* W;   // fixed-order slots [split][x][J][NE][N] (null: atomics into out)
+  int J;  // slots per vector: the half row tiles it can span
 
   __device__ void load(T* stage, int, int kt, int m0, int n0) const {
     const int k0 = kt * Core::BK, M_ = M, N_ = N, K_ = K, lda_ = lda;
@@ -197,54 +205,94 @@ struct Rho1Gemm {
       T* o = out + (int64_t)(c0 + c) * N + n0 + n;
       const int64_t xs = (int64_t)ncomp * N;
       const T f = c0 + c > 0 ? mk * gf : mk;
+      // the sum of vector x's rows in this half tile (hs: the half tile's
+      // index over all rows; a vector's slots start at its first)
+      const int hs = q0 / QH;
+      auto put = [&](int x, T v) {
+        if (x >= nz) return;
+        if (W != nullptr)
+          W[(((int64_t)(blockIdx.y * nz + x) * J + hs - x * gpv / QH) * NE + c) * N + n0 + n] = v;
+        else
+          atomicAdd(o + x * xs, v);
+      };
       int x = x0, nb = nb0;
       T s = T(0);
 #pragma unroll
       for (int j = 0; j < QH; ++j) {
         if (j == nb) {
-          if (x < nz) atomicAdd(o + x * xs, s * f);
+          put(x, s * f);
           ++x;
           nb += gpv;
           s = T(0);
         }
         s += red[(half * QH + j) * LDR + n];
       }
-      if (x < nz) atomicAdd(o + x * xs, s * f);
+      put(x, s * f);
     }
   }
 };
 
+// out[x, c0 + c, n] += the sum over splits s and slots j < cnt(x) of
+// W[s][x][j][c][n], in that order, for the cnt(x) half row tiles vector x
+// spans: the fixed-order sum of the walks' slots
+template <typename T>
+__global__ void __launch_bounds__(256)
+    sum_slots_kernel(const T* __restrict__ W, int ns, int nz, int J, int ne, int N, int gpv,
+                     int qh, int ncomp, int c0, T* __restrict__ out) {
+  const int64_t total = (int64_t)nz * ne * N;
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int n = (int)(e % N);
+    const int r = (int)(e / N), c = r % ne, x = r / ne;
+    const int first = x * gpv / qh, cnt = ((x + 1) * gpv - 1) / qh - first + 1;
+    T s = T(0);
+    for (int k = 0; k < ns; ++k)
+      for (int j = 0; j < cnt; ++j) s += W[(((int64_t)(k * nz + x) * J + j) * ne + c) * N + n];
+    out[((int64_t)x * ncomp + c0 + c) * N + n] += s;
+  }
+}
+
 template <typename T, int NE>
 cudaError_t launch_gemm(const T* A, int lda, int K, int M, int N, const T* Bt, int64_t bg,
                         int64_t bk, const T* E, int64_t ec, int64_t eg, int64_t em, int R,
-                        int nrow, int nz, int ncomp, int c0, T gf, const T* mask, T* out,
-                        cudaStream_t stream) {
+                        int nrow, int nz, int ncomp, int c0, T gf, const T* mask, T* out, T* W,
+                        int64_t wcap, cudaStream_t stream) {
   using Core = gt::Core<T, 16, 1, 3, gt::NMAJOR, true>;
   using P = Rho1Gemm<Core, NE>;
+  constexpr int QH = Core::NG / 2;
   // 16-byte runs: A along its rows, B along k, the table along the orbitals
   const bool vecA = gt::aligned16(A, {lda});
   const bool vecB = bk == 1 && gt::aligned16(Bt, {bg});
   const bool vecE = em == 1 && gt::aligned16(E, {eg, ec});
+  const int gpv = R / Core::RG, J = (gpv - 1) / QH + 2;
+  const int64_t slots = (int64_t)nz * J * NE * N;  // one split's
   const P p{M, N, (K + Core::BK - 1) / Core::BK, 1, 0, P::EPI, A, lda, K, Bt, bg, bk, E, ec, eg,
-            em, R, nrow, nz, ncomp, c0, gf, vecA, vecB, vecE, mask, out};
-  return gt::launch<Core>(p, stream);
+            em, R, nrow, nz, ncomp, c0, gf, vecA, vecB, vecE, mask, out, W, J};
+  gt::Split sp;
+  cudaError_t err = gt::plan<Core>(p, W != nullptr ? wcap / slots : 65535, sp);
+  if (err == cudaSuccess) err = gt::run<Core>(p, sp, stream);
+  if (err != cudaSuccess || W == nullptr) return err;
+  const int64_t blocks = std::min<int64_t>(((int64_t)nz * NE * N + 255) / 256, 65535);
+  sum_slots_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(W, (int)sp.split, nz, J, NE, N, gpv,
+                                                            QH, ncomp, c0, out);
+  return cudaGetLastError();
 }
 
 // the GEMM of one A operand, its epilogue over ne = 1, 3 or 4 table components
 template <typename T>
 cudaError_t launch_side(int ne, const T* A, int lda, int K, const T* Bt, int64_t bg, int64_t bk,
                         const T* E, int64_t ec, int64_t eg, int64_t em, int R, int nrow, int gc,
-                        int nz, int ncomp, int c0, T gf, const T* mask, T* out,
-                        cudaStream_t stream) {
+                        int nz, int ncomp, int c0, T gf, const T* mask, T* out, T* W,
+                        int64_t wcap, cudaStream_t stream) {
   const int M = nz * R;
   if (ne == 1)
     return launch_gemm<T, 1>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
-                             gf, mask, out, stream);
+                             gf, mask, out, W, wcap, stream);
   if (ne == 3)
     return launch_gemm<T, 3>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
-                             gf, mask, out, stream);
+                             gf, mask, out, W, wcap, stream);
   return launch_gemm<T, 4>(A, lda, K, M, gc, Bt, bg, bk, E, ec, eg, em, R, nrow, nz, ncomp, c0,
-                           gf, mask, out, stream);
+                           gf, mask, out, W, wcap, stream);
 }
 
 // One GEMM per operand given: za gives tmp (rows x * ra + i <-> po_c[.,
@@ -257,7 +305,7 @@ template <typename T>
 int launch(const T* phio, long long oc, long long og, long long om, const T* phiv, long long vc,
            long long vg, long long vm, int gc, const T* za, int ra, const T* zb, int rb, int so,
            int sv, int nz, int nocc, int nvir, int o0, int v0, int ncomp, int vu, int hermi,
-           const T* mask, T* out, void* stream) {
+           const T* mask, T* out, T* W, long long wcap, void* stream) {
   constexpr int RG = gt::Core<T, 16, 1, 3, gt::NMAJOR, true>::RG;
   const bool tmp = hermi || ncomp == 4 || !vu, u = !hermi && (ncomp == 4 || vu);
   if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 || (ncomp != 1 && ncomp != 4) ||
@@ -274,12 +322,13 @@ int launch(const T* phio, long long oc, long long og, long long om, const T* phi
   if (tmp) {
     const int y0 = vu ? 1 : 0;  // the first table component of the epilogue
     err = launch_side<T>(ncomp - y0, za, nz * ra, sv + nvir, pv, vg, vm, po + y0 * oc, oc, og, om,
-                         ra, so + nocc, gc, nz, ncomp, y0, T(hermi ? 2 : 1), mask, out, st);
+                         ra, so + nocc, gc, nz, ncomp, y0, T(hermi ? 2 : 1), mask, out, W, wcap,
+                         st);
   }
   if (u && err == cudaSuccess) {
     const int y0 = vu ? 0 : 1;
     err = launch_side<T>(ncomp - y0, zb, nz * rb, so + nocc, po, og, om, pv + y0 * vc, vc, vg, vm,
-                         rb, sv + nvir, gc, nz, ncomp, y0, T(1), mask, out, st);
+                         rb, sv + nvir, gc, nz, ncomp, y0, T(1), mask, out, W, wcap, st);
   }
   return (int)err;
 }
@@ -292,18 +341,18 @@ int grid_rho1_f64(const double* phio, long long oc, long long og, long long om,
                   const double* phiv, long long vc, long long vg, long long vm, int gc,
                   const double* za, int ra, const double* zb, int rb, int so, int sv, int nz,
                   int nocc, int nvir, int o0, int v0, int ncomp, int vu, int hermi,
-                  const double* mask, double* out, void* stream) {
+                  const double* mask, double* out, double* W, long long wcap, void* stream) {
   return launch<double>(phio, oc, og, om, phiv, vc, vg, vm, gc, za, ra, zb, rb, so, sv, nz, nocc,
-                        nvir, o0, v0, ncomp, vu, hermi, mask, out, stream);
+                        nvir, o0, v0, ncomp, vu, hermi, mask, out, W, wcap, stream);
 }
 
 int grid_rho1_f32(const float* phio, long long oc, long long og, long long om, const float* phiv,
                   long long vc, long long vg, long long vm, int gc, const float* za, int ra,
                   const float* zb, int rb, int so, int sv, int nz, int nocc, int nvir, int o0,
                   int v0, int ncomp, int vu, int hermi, const float* mask, float* out,
-                  void* stream) {
+                  float* W, long long wcap, void* stream) {
   return launch<float>(phio, oc, og, om, phiv, vc, vg, vm, gc, za, ra, zb, rb, so, sv, nz, nocc,
-                       nvir, o0, v0, ncomp, vu, hermi, mask, out, stream);
+                       nvir, o0, v0, ncomp, vu, hermi, mask, out, W, wcap, stream);
 }
 
 const char* xk_error_string(int code) {

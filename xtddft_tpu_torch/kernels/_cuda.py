@@ -26,6 +26,11 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 
+# the fixed-order mode's workspace: at most this many slices (splits of a
+# reduction) within this many bytes, and never fewer than one slice
+FIXED_MAX_SLICES = 64
+FIXED_BUDGET_BYTES = 1 << 29
+
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
@@ -82,3 +87,13 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         if t.device != dev or t.dtype != dt:
             raise ValueError(f"{name}: all tensors must share device and dtype "
                              f"({t.device}/{t.dtype} vs {dev}/{dt})")
+
+
+def workspace(per_slice: int, like: torch.Tensor) -> torch.Tensor:
+    """The fixed-order mode's workspace: slices of ``per_slice`` elements,
+    one per split of a launch's reduction, as many as ``FIXED_BUDGET_BYTES``
+    holds (at least one, at most ``FIXED_MAX_SLICES``); the kernel cuts its
+    split to the slices it gets.  A failed allocation raises: the mode never
+    falls back to atomics."""
+    n = max(1, min(FIXED_MAX_SLICES, FIXED_BUDGET_BYTES // (per_slice * like.element_size())))
+    return torch.empty(n * per_slice, dtype=like.dtype, device=like.device)

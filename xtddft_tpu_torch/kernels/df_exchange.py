@@ -10,7 +10,10 @@ register-tiled FMA, `cp.async` staging) through a half-transform buffer T
 that this wrapper allocates once per call, one aux chunk at a time, plus a
 reduction kernel for the Coulomb intermediate t.  It is bound by flops,
 2*naux*nz*nocc*nvir*(nvir+nocc+1), one less in the bracket without t
-(`response/flops.py`).  A CPU tensor
+(`response/flops.py`).  The split-K partials of K are summed in a fixed
+order through a workspace, so that the same inputs give the bitwise-same t
+and K on every launch (the SCF's convergence test sits at the rounding of
+its Fock build).  A CPU tensor
 takes the plain torch version below; a CUDA tensor launches the kernel or
 raises.
 """
@@ -31,7 +34,7 @@ launches = 0
 
 _ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I,
          _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
-         _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P]
+         _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.L, _cuda.P]
 
 
 def _round_up(n: int, m: int) -> int:
@@ -86,7 +89,8 @@ def df_exchange(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     indices per T intermediate, for the kernel and the plain version alike
     (default: ``plan_aux_chunk``'s, from ``T_BUDGET_BYTES``).  The Coulomb
     intermediate is defined within one spin's tensor, so a second tensor
-    goes with ``with_t=False`` only."""
+    goes with ``with_t=False`` only.  Bitwise repeatable on the card, as the
+    plain version on the CPU is."""
     global launches
     if B_vir is not None and with_t:
         raise ValueError(f"{NAME}: a second tensor (B_vir) has no Coulomb term; "
@@ -123,11 +127,13 @@ def df_exchange(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     zT[shift:, :nz * nocc] = z.reshape(nz * nocc, nvir).T
     npad = _round_up(nz * nvir, vec)
     Tb = torch.empty(chunk * nocc * npad, dtype=z.dtype, device=z.device)
+    W = _cuda.workspace(K.numel(), K)
     lib, fn = _cuda.entry(NAME, _ARGS, B.dtype)
     rc = fn(B.data_ptr(), *B.stride(), Bv.data_ptr(), *Bv.stride(), naux, z.data_ptr(),
             zT.data_ptr(), ldz, shift, nz, nocc, nvir, o0, v0,
             t.data_ptr() if with_t else None, K.data_ptr(), Tb.data_ptr(), npad,
-            chunk, _cuda.stream())
+            chunk, W.data_ptr(), W.numel(),
+            _cuda.stream())
     _cuda.check(lib, NAME, rc)
     launches += 1
     return t, K

@@ -11,7 +11,9 @@ points, forming the combined factors F in shared memory as each tile of phi
 lands; a sigma calls it once per point span.  It is bound by flops, at least
 4*nz*nocc*nvir per grid point with the gradient (`response/flops.py`;
 contracting over 4 components, it does twice that) and 2*nz*nocc*nvir for
-the value alone (which it does exactly).  A CPU tensor takes the plain torch
+the value alone (which it does exactly).  ``fixed_order=True`` (the SCF's
+Fock build) adds the point-split partials in a fixed order through a
+workspace: bitwise-repeatable sums.  A CPU tensor takes the plain torch
 version below; a CUDA tensor launches the kernel or raises.
 """
 
@@ -29,7 +31,8 @@ REPLACES = "xtddft_tpu/response/sigma_df.py:525"
 launches = 0
 
 _ARGS = [_cuda.P, _cuda.P, _cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.P, _cuda.L, _cuda.L,
-         _cuda.L, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P]
+         _cuda.L, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P,
+         _cuda.L, _cuda.P]
 
 
 def grid_back_plain(dwv: torch.Tensor, dwg: torch.Tensor | None, phi: torch.Tensor,
@@ -53,7 +56,7 @@ def grid_back_plain(dwv: torch.Tensor, dwg: torch.Tensor | None, phi: torch.Tens
 
 def grid_back(dwv: torch.Tensor, dwg: torch.Tensor | None, phi: torch.Tensor,
               o0: int, v0: int, out: torch.Tensor,
-              phi_v: torch.Tensor | None = None) -> torch.Tensor:
+              phi_v: torch.Tensor | None = None, fixed_order: bool = False) -> torch.Tensor:
     """out[x,o,v] += sum_g (dwv po_0 + sum_y dwg_y po_y) pv_0
     + sum_g sum_y dwg_y po_0 pv_y, with po = phi[:, :, o0+o] and
     pv = phi_v[:, :, v0+v]; with ``dwg=None`` the value term
@@ -62,7 +65,8 @@ def grid_back(dwv: torch.Tensor, dwg: torch.Tensor | None, phi: torch.Tensor,
     dwv: (nz, gc); dwg: (nz, 3, gc) or None; phi, phi_v (default phi): (4,
     gc, nmo) spans of gc grid points of the MO grid tables of the occupied
     and the virtual side (at least the value row when ``dwg`` is None), any
-    strides; out: (nz, nocc, nvir) contiguous accumulator."""
+    strides; out: (nz, nocc, nvir) contiguous accumulator.  ``fixed_order``:
+    the partial sums are added in a fixed order (bitwise repeatable)."""
     global launches
     if phi.device.type == "cpu":
         return grid_back_plain(dwv, dwg, phi, o0, v0, out, phi_v)
@@ -83,10 +87,12 @@ def grid_back(dwv: torch.Tensor, dwg: torch.Tensor | None, phi: torch.Tensor,
     dwv = dwv.contiguous()
     if dwg is not None:
         dwg = dwg.contiguous()
+    W = _cuda.workspace(out.numel(), out) if fixed_order else None
     lib, fn = _cuda.entry(NAME, _ARGS, phi.dtype)
     rc = fn(dwv.data_ptr(), None if dwg is None else dwg.data_ptr(), phi.data_ptr(),
             *phi.stride(), pv.data_ptr(), *pv.stride(), gc, nz, nocc, nvir, o0, v0,
-            out.data_ptr(), _cuda.stream())
+            out.data_ptr(), None if W is None else W.data_ptr(), 0 if W is None else W.numel(),
+            _cuda.stream())
     _cuda.check(lib, NAME, rc)
     launches += 1
     return out

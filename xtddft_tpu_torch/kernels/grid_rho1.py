@@ -17,8 +17,10 @@ on the grid, `xtddft_tpu/xc/interface.py:53` `cache_rho`: the AO table on
 both sides and symmetric density matrices as z, where the tmp GEMM alone
 gives the value row and half the gradient, one GEMM of 2*nz*nao^2 per
 point, as the plain version does.  The wrapper lays z out as the GEMMs' A
-operands (`operands`).  A CPU tensor takes the plain torch version below; a CUDA
-tensor launches the kernel or raises.
+operands (`operands`).  ``fixed_order=True`` (the SCF's density) stores
+each partial sum of a point in its own slot of a workspace and adds the
+slots in a fixed order: bitwise-repeatable sums.  A CPU tensor takes the
+plain torch version below; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ launches = 0
 
 _ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I,
          _cuda.P, _cuda.I, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
-         _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P]
+         _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P, _cuda.L,
+         _cuda.P]
 
 
 def _round_up(n: int, m: int) -> int:
@@ -48,6 +51,18 @@ def _round_up(n: int, m: int) -> int:
 # rows the kernel's tile epilogue sums at once, by element size: each trial
 # vector's rows are padded to a multiple of it
 _ROW_GROUP = {4: 4, 8: 8}
+# row groups in half a row tile (128 rows in f32, 64 in f64): the unit of
+# the fixed-order mode's slots
+_HALF_TILE_GROUPS = {4: 16, 8: 4}
+
+
+def fixed_order_slots(nz: int, ra: int, rb: int, ncomp: int, gc: int, itemsize: int) -> int:
+    """Elements of one split's slots in the fixed-order mode, over both
+    GEMMs: a slot per vector, half row tile its rows can span, component and
+    point."""
+    rg, qh = _ROW_GROUP[itemsize], _HALF_TILE_GROUPS[itemsize]
+    spans = max((r // rg - 1) // qh + 2 for r in (ra, rb) if r > 0)
+    return nz * spans * ncomp * gc
 
 
 def operands(z: torch.Tensor, o0: int, v0: int, ncomp: int, hermi: bool = False):
@@ -106,7 +121,7 @@ def grid_rho1_plain(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
 
 def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
               mask: torch.Tensor | None = None, phi_v: torch.Tensor | None = None,
-              ncomp: int = 4, hermi: bool = False) -> torch.Tensor:
+              ncomp: int = 4, hermi: bool = False, fixed_order: bool = False) -> torch.Tensor:
     """rho1[x, 0, g] = sum_ov z[x,o,v] phi[0,g,o0+o] phi_v[0,g,v0+v] and,
     with ``ncomp=4``, its gradient rho1[x, 1:4, g]; zero where ``mask``
     (gc,) is 0.
@@ -117,7 +132,9 @@ def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
 
     ``hermi=True``: z symmetric (nz, n, n) on one table (``phi_v`` None,
     o0 == v0), as the SCF's density matrices on the AO table are; the
-    caller vouches for the symmetry, the shapes are checked."""
+    caller vouches for the symmetry, the shapes are checked.  ``fixed_order``:
+    the partial sums of each point are added in a fixed order (bitwise
+    repeatable)."""
     global launches
     if ncomp not in (1, 4):
         raise ValueError(f"{NAME}: ncomp {ncomp}, expected 1 or 4")
@@ -143,11 +160,14 @@ def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     if mask is not None:
         mask = mask.contiguous()
     out = torch.zeros((nz, ncomp, gc), dtype=z.dtype, device=z.device)
+    W = (_cuda.workspace(fixed_order_slots(nz, ra, rb, ncomp, gc, z.element_size()), z)
+         if fixed_order else None)
     lib, fn = _cuda.entry(NAME, _ARGS, phi.dtype)
     rc = fn(phi.data_ptr(), *phi.stride(), pv.data_ptr(), *pv.stride(), gc,
             None if za is None else za.data_ptr(), ra, None if zb is None else zb.data_ptr(), rb,
             so, sv, nz, nocc, nvir, o0, v0, ncomp, int(vu), int(hermi),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), _cuda.stream())
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if W is None else W.data_ptr(), 0 if W is None else W.numel(), _cuda.stream())
     _cuda.check(lib, NAME, rc)
     launches += 1
     return out

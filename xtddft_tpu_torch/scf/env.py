@@ -142,13 +142,16 @@ class Env:
     def df_B(self, omega: float = 0.0) -> torch.Tensor:
         """Metric-dressed (naux, nao, nao) fitted tensor on the device, so
         that (mu nu|g|lam sig) ~= sum_P B[P,mn] B[P,ls]; the dressing
-        matmul runs on the device."""
+        matmul runs on the device.  The host j3c is released once dressed
+        (11.4 GB at TTM/dzp); a later ``df_j3c_host`` rebuilds it."""
         omega = float(omega or 0.0)
         if omega not in self._df_B_cache:
             j3c = self.tensor(self.df_j3c_host(omega))
             isqrt = self.tensor(self.df_isqrt_host(omega))
             nx, nao = j3c.shape[0], j3c.shape[1]
             self._df_B_cache[omega] = (isqrt @ j3c.reshape(nx, -1)).reshape(nx, nao, nao)
+            del j3c
+            self._df_j3c_cache.pop(omega, None)
         return self._df_B_cache[omega]
 
     def df_B_host(self, omega: float = 0.0) -> np.ndarray:
@@ -177,7 +180,9 @@ class Env:
         """(J of the summed densities or None, K of each) for a stack dms
         (nz, nao, nao) in one K1 launch: K1's Coulomb intermediate t[x, P]
         is `_df_j`'s t, its exchange is `_df_k`, because B is symmetric in
-        its AO pair.  ``with_j`` needs the Coulomb tensor (omega 0)."""
+        its AO pair.  ``with_j`` needs the Coulomb tensor (omega 0).  K1
+        sums in its fixed order here: the SCF's 1e-11 Ha energy test sits at
+        the rounding of these sums, and a Fock build must repeat bitwise."""
         omega = float(omega or 0.0)
         if with_j and omega:
             raise ValueError("get_jk: J is the Coulomb (omega = 0) tensor's")

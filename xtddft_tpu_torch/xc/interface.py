@@ -11,7 +11,8 @@ including all gamma cross terms.  Counterpart of the JAX package's
 `xc/interface.py`.  The density on the grid (`cache_rho`) and the potential
 matrix (`_contract_vmat`) are the hand-written kernels K2 (hermitian mode)
 and K3 on the AO table when the tensors are on the card, their plain torch
-versions on the CPU.
+versions on the CPU; on the card both sum in their fixed order, so that an
+SCF's Fock build repeats bitwise.
 
 Density convention: ``rho = (ra, rb, ga, gb)`` with ra/rb shape (ng,) and
 ga/gb shape (3, ng).
@@ -57,7 +58,7 @@ def cache_rho(ao, dm):
     nao), symmetric.  Returns (rho (ng,), grho (3, ng)), with a leading nz
     axis for a stack.
     """
-    r = grid_rho1(ao, dm.reshape(-1, *dm.shape[-2:]), 0, 0, hermi=True)
+    r = grid_rho1(ao, dm.reshape(-1, *dm.shape[-2:]), 0, 0, hermi=True, fixed_order=True)
     if dm.dim() == 2:
         r = r[0]
     return r[..., 0, :], r[..., 1:4, :]
@@ -113,7 +114,7 @@ def _contract_vmat(ao, wv, wvec):
     """
     dwv = wv.reshape(-1, wv.shape[-1])
     out = torch.zeros((dwv.shape[0], ao.shape[2], ao.shape[2]), dtype=ao.dtype, device=ao.device)
-    grid_back(dwv, wvec.reshape(-1, 3, wvec.shape[-1]), ao, 0, 0, out)
+    grid_back(dwv, wvec.reshape(-1, 3, wvec.shape[-1]), ao, 0, 0, out, fixed_order=True)
     return out[0] if wv.dim() == 1 else out
 
 
