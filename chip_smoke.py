@@ -30,7 +30,12 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    (its cost).  Every fixed-order launch is made twice and must repeat
    bitwise.  The
    X-TDA shapes include TTM/dzp's alpha block in f64 (nz 20, naux 3990, nmo
-   598; K2 and K3 on a 12-chunk jvp group);
+   598; K2 and K3 on a 12-chunk jvp group).  K2 hermitian and K3 on the AO
+   table also run at phase 9's shapes: the in-core sigma's stack on CH2O+
+   (10 symmetrized transition matrices, 38 AO, 100,738 points) and the
+   benzene SCF's pair (114 AO, 294,480 points).  K3's ``library_ms`` is the
+   single einsum over its per-point 4x4 weights (main, four-component flip
+   and AO modes);
 3. the main path: X-TDA on the TTM radical (182 AO, ROKS/B3LYP, density
    fitted) through ``XTDA(load_mf(...), backend="df").kernel()`` in f64,
    gated against ``tests/data/golden_ttm.json``; every kernel must have
@@ -65,7 +70,20 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    dzp (gated against the JAX host engine's energy of that density and the
    checkpoint's occupied orbital energies), and ``XTDA(nstates=5)`` on its
    mean field.  The set-up line gives each host step's seconds and the
-   host's core count; every kernel must launch in every leg.
+   host's core count; every kernel must launch in every leg;
+9. the small-molecule flow, f64, through the public API with ``df=None``
+   (in-core below 121 AO) and ``backend="auto"`` (dense), each leg gated
+   as tests/test_golden.py gates the JAX package (constants copied from it):
+   N2 cc-pVDZ ``TDA``; CH2O+ cc-pVDZ ``XTDA`` (dense, then ``incore`` and
+   ``df`` on the same mean field) and ``UTDA``; FH 6-31G, the aufbau ROKS
+   energy, the 3Sigma state through ``occ_from_irreps`` and MOM,
+   ``XSFTDA`` (ALDA0, multicollinear, ``use_davidson``) and the UKS USF
+   leg; Be aug-cc-pVTZ ``XSFTDA``; benzene cc-pVDZ (114 AO, 294,480 grid
+   points, the largest size the ladder keeps in-core and dense) ``TDA``
+   singlet and triplet and ``UTDA``, whose roots must be the lowest ten of
+   theirs.  Each leg prints its ERI and grid build seconds, its SCF cycles
+   and stage seconds, each response's route and seconds, and the kernels'
+   launches; K2 and K3 must launch in every leg.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -275,6 +293,18 @@ def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=Non
     checks.append(rec)
 
 
+def _k3_weights(dwv, dwg):
+    """K3's per-point 4x4 weights W[x, c, d, g]: W00 = dwv, W0y = Wy0 = dwg_y,
+    so that one einsum ``"cgo,xcdg,dgv->xov"`` over the tables computes K3;
+    built outside the timed call."""
+    nz, pts = dwv.shape
+    W = torch.zeros((nz, 4, 4, pts), dtype=dwv.dtype, device=dwv.device)
+    W[:, 0, 0] = dwv
+    W[:, 0, 1:] = dwg
+    W[:, 1:, 0] = dwg
+    return W
+
+
 def phase2() -> dict:
     """Each kernel against its plain version, f64 and f32, TTM and bench
     shapes, both spin blocks (times and bounds at the alpha block); K2 and
@@ -288,6 +318,7 @@ def phase2() -> dict:
     g = torch.Generator("cuda").manual_seed(1234)
     checks = []
     gc = 4096
+    ch2o_table = _ch2o_table()
     for dtype in (torch.float64, torch.float32):
         tol = F64_RTOL if dtype == torch.float64 else F32_RTOL
         dname = str(dtype).split(".")[-1]
@@ -336,14 +367,19 @@ def phase2() -> dict:
                            if timed else None)
                 one_chunk = (gc, phi, dwv[:, :gc].contiguous(), dwg[..., :gc].contiguous())
                 for pts, ph, dv, dg in (one_chunk, (span, phi_span, dwv, dwg)):
+                    W = _k3_weights(dv, dg) if timed else None
                     _check(checks, rec(k3.NAME, gc=pts),
                            lambda: k3.grid_back(dv, dg, ph, 0, no, out.zero_()).clone(),
                            lambda: k3.grid_back_plain(dv, dg, ph, 0, no, out.zero_()).clone(),
                            timed, fl.grid_back_flops(nz, no, nv, pts),
                            fl.grid_back_bytes(nz, no, nv, pts, isz),
+                           library=(lambda: torch.einsum("cgo,xcdg,dgv->xov", ph[:, :, :no], W,
+                                                         ph[:, :, no:no + nv]))
+                           if timed else None,
                            twin=(lambda: k3.grid_back(dv, dg, ph, 0, no, out.zero_(),
                                                       fixed_order=True).clone())
                            if timed else None)
+                    del W
             del B, phi_all, phi, phi_span, mask_span
             torch.cuda.empty_cache()
         for label, nz, naux, nmo, n_o, v0, n_v, npts, two in FLIP_SHAPES:
@@ -380,11 +416,14 @@ def phase2() -> dict:
             del wv
             out = torch.zeros((nz, n_o, n_v), device="cuda", dtype=dtype)
             pv = phi if phi_v is None else phi_v
-            # the value-only modes are one three-operand einsum each
+            # the value-only modes are one three-operand einsum each; K3's
+            # four-component mode one over its per-point weights
+            W = _k3_weights(dwv, dwg)
             libs = {1: (lambda: torch.einsum("xov,gv,go->xg", z, pv[0][:, v],
                                              phi[0][:, o])[:, None],
                         lambda: torch.einsum("xg,go,gv->xov", dwv, phi[0][:, o], pv[0][:, v])),
-                    4: (None, None)}
+                    4: (None, lambda: torch.einsum("cgo,xcdg,dgv->xov", phi[:, :, o], W,
+                                                   pv[:, :, v]))}
             for ncomp, mode in ((1, "value_only"), (4, "four_component")):
                 dg = dwg if ncomp == 4 else None
                 lib2, lib3 = libs[ncomp]
@@ -402,11 +441,14 @@ def phase2() -> dict:
                                                   phi_v=phi_v).clone(),
                        True, fl.grid_back_flops(nz, n_o, n_v, npts, ncomp),
                        fl.grid_back_bytes(nz, n_o, n_v, npts, isz, ncomp), library=lib3)
-            del phi, phi_v, pv, dwv, dwg, out, libs
+            del phi, phi_v, pv, dwv, dwg, out, libs, W
             torch.cuda.empty_cache()
         for shape in AO_SHAPES:
             if dtype in shape[-1]:
                 _ao_checks(checks, g, dtype, *shape[:-1])
+        for shape in SMALL_AO_SHAPES:
+            _ao_checks(checks, g, dtype, *shape,
+                       table=ch2o_table if shape[0] == "ch2o_sigma" else None)
         for label, nz, naux, nmo, no, nv in K1_EDGES:
             B = torch.randn((naux, nmo, nmo), generator=g, device="cuda", dtype=dtype)
             z = torch.randn((nz, no, nv), generator=g, device="cuda", dtype=dtype)
@@ -418,54 +460,103 @@ def phase2() -> dict:
                    lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, z, o0, v0)]),
                    lambda: torch.cat([x.flatten() for x in k1.df_exchange_plain(B, z, o0, v0)]),
                    False)
+    del ch2o_table
+    torch.cuda.empty_cache()
     return {"checks": checks}
 
 
 # the SCF's AO modes: (label, nao, naux, grid points, dtypes), two density
 # matrices; TTM/STO-3G and TTM/dzp
 AO_SHAPES = (("ttm_ao", 182, 4412, 187644, BOTH), ("dzp_ao", 598, 3990, 187644, F64_ONLY))
+# phase 9's AO modes, K2 hermitian and K3 alone (label, nao, naux None,
+# grid points, nz, transition matrices): the in-core sigma's stack on
+# CH2O+/cc-pVDZ at grid 3 (its X-TDA block of 5 vectors, alpha and beta:
+# non-symmetric matrices, symmetrized for K2; on the molecule's own AO table
+# and K2 mask, `_ch2o_table`), and the SCF's pair on benzene/cc-pVDZ at grid
+# 3 (294,480 points), the largest in-core size, whole grid in one launch
+SMALL_AO_SHAPES = (("ch2o_sigma", 38, None, 100738, 10, True),
+                   ("benzene_scf", 114, None, 294480, 2, False))
 # the JAX functions each kernel computes in the SCF's Fock build
 SCF_REPLACES = {"df_exchange": "xtddft_tpu/scf/env.py:244",
                 "grid_rho1": "xtddft_tpu/xc/interface.py:53",
                 "grid_back": "xtddft_tpu/xc/interface.py:112"}
 
 
-def _ao_checks(checks, g, dtype, label, nao, naux, npts):
+def _ch2o_table():
+    """CH2O+/cc-pVDZ at grid 3 as phase 9 builds it: the AO table (f64), and
+    as 0/1 the `_sanitize` mask of its core-Hamiltonian guess density, the
+    kind of mask that `fxc_v1mat` hands K2."""
+    from xtddft_tpu_torch.chem import Molecule, geometries as G
+    from xtddft_tpu_torch.scf.env import Env
+    from xtddft_tpu_torch.xc.interface import _sanitize, cache_rho
+
+    mol = Molecule.from_atoms(G.ch2o_vacuum, basis="cc-pvdz", charge=1, spin=1)
+    env = Env(mol, grid_level=3, device="cuda", dtype=torch.float64)
+    s, U = torch.linalg.eigh(env.S)
+    X = U * s.rsqrt()
+    C = X @ torch.linalg.eigh(X.T @ env.hcore @ X)[1]
+    r, gr = cache_rho(env.ao, torch.stack([C[:, :n] @ C[:, :n].T
+                                           for n in (mol.nalpha, mol.nbeta)]))
+    mask = _sanitize(env.grid_weights, (r[0], r[1], gr[0], gr[1]))[2]
+    return env.ao, mask.to(torch.float64)
+
+
+def _ao_checks(checks, g, dtype, label, nao, naux, npts, nz=2, nonsym=False, table=None):
     """The SCF's Fock build on the kernels, in their fixed summation order
     as the SCF runs them, K2 and K3 each beside its atomic order: K1 in AO mode (t
     and K of two density matrices; timed and held against the single
-    einsum on K, and checked untimed on (t, K)), K2 hermitian (four rows,
-    and the value row alone, each against its single einsum), K3 with the
-    AO table on both sides (no single call: a sum of three products)."""
+    einsum on K, and checked untimed on (t, K); skipped when ``naux`` is
+    None), K2 hermitian (four rows, and the value row alone, each against
+    its single einsum), K3 with the AO table on both sides (against the
+    single einsum over its per-point weights).  ``nonsym``: nz
+    non-symmetric transition matrices, symmetrized as the in-core
+    response symmetrizes them.  ``table``: (AO table, K2 mask) of a
+    molecule, in place of a random table; then also the in-core sigma's
+    own modes in its atomic order, each beside its fixed-order twin: K2
+    masked (`fxc_v1mat`) and K3's value term on the AO table
+    (`sf_v1mat`)."""
     from xtddft_tpu_torch.kernels import df_exchange as k1
     from xtddft_tpu_torch.kernels import grid_back as k3
     from xtddft_tpu_torch.kernels import grid_rho1 as k2
     from xtddft_tpu_torch.response import flops as fl
 
-    nz = 2
+    from xtddft_tpu_torch.xc.interface import symmetrize
+
     dname = str(dtype).split(".")[-1]
     isz = torch.empty((), dtype=dtype).element_size()
-    G = torch.randn((naux, nao, 8), generator=g, device="cuda", dtype=dtype)
-    B = torch.bmm(G, G.transpose(1, 2)) / (naux * nao * 8) ** 0.5
-    del G
-    c = torch.randn((nz, nao, 60), generator=g, device="cuda", dtype=dtype) / 60 ** 0.5
-    dms = c @ c.transpose(1, 2)  # symmetric, one per spin
-    del c
+    if nonsym:
+        dms = symmetrize(torch.randn((nz, nao, nao), generator=g, device="cuda",
+                                     dtype=dtype) / nao)
+    else:
+        c = torch.randn((nz, nao, 60), generator=g, device="cuda", dtype=dtype) / 60 ** 0.5
+        dms = c @ c.transpose(1, 2)  # symmetric, one per spin
+        del c
 
     def rec(name, mode, **kw):
         return {"kernel": name, "shape": label, "mode": mode, "dtype": dname, "nz": nz,
                 "nao": nao, "naux": naux, "rtol": AO_RTOL[dname], "fixed_order": True, **kw}
 
-    _check(checks, rec(k1.NAME, "ao"), lambda: k1.df_exchange(B, dms, 0, 0)[1],
-           lambda: k1.df_exchange_plain(B, dms, 0, 0)[1], True,
-           fl.df_exchange_flops(naux, nz, nao, nao), fl.df_exchange_bytes(naux, nz, nao, nao, isz),
-           library=lambda: torch.einsum("Pmr,xrs,Psn->xmn", B, dms, B))
-    _check(checks, rec(k1.NAME, "ao_with_t"),
-           lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, dms, 0, 0)]),
-           lambda: torch.cat([x.flatten() for x in k1.df_exchange_plain(B, dms, 0, 0)]), False)
-    del B
-    torch.cuda.empty_cache()
-    ao = torch.randn((4, npts, nao), generator=g, device="cuda", dtype=dtype) / nao ** 0.5
+    if naux is not None:
+        G = torch.randn((naux, nao, 8), generator=g, device="cuda", dtype=dtype)
+        B = torch.bmm(G, G.transpose(1, 2)) / (naux * nao * 8) ** 0.5
+        del G
+        _check(checks, rec(k1.NAME, "ao"), lambda: k1.df_exchange(B, dms, 0, 0)[1],
+               lambda: k1.df_exchange_plain(B, dms, 0, 0)[1], True,
+               fl.df_exchange_flops(naux, nz, nao, nao),
+               fl.df_exchange_bytes(naux, nz, nao, nao, isz),
+               library=lambda: torch.einsum("Pmr,xrs,Psn->xmn", B, dms, B))
+        _check(checks, rec(k1.NAME, "ao_with_t"),
+               lambda: torch.cat([x.flatten() for x in k1.df_exchange(B, dms, 0, 0)]),
+               lambda: torch.cat([x.flatten() for x in k1.df_exchange_plain(B, dms, 0, 0)]),
+               False)
+        del B
+        torch.cuda.empty_cache()
+    if table is None:
+        ao = torch.randn((4, npts, nao), generator=g, device="cuda", dtype=dtype) / nao ** 0.5
+        mask = None
+    else:
+        ao, mask = (t.to(dtype) for t in table)
+        assert ao.shape == (4, npts, nao), ao.shape
     wv = torch.randn((nz, 4, npts), generator=g, device="cuda", dtype=dtype)
     dwv, dwg = wv[:, 0].contiguous(), wv[:, 1:4].contiguous()
     del wv
@@ -486,12 +577,29 @@ def _ao_checks(checks, g, dtype, label, nao, naux, npts):
            library=lambda: torch.einsum("gi,xij,gj->xg", ao[0], dms, ao[0])[:, None],
            twin=lambda: k2.grid_rho1(ao, dms, 0, 0, ncomp=1, hermi=True))
     out = torch.zeros((nz, nao, nao), device="cuda", dtype=dtype)
+    W = _k3_weights(dwv, dwg)
     _check(checks, rec(k3.NAME, "ao", gc=npts),
            lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_(), fixed_order=True).clone(),
            lambda: k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.zero_()).clone(), True,
            fl.grid_ao_flops(nz, nao, npts), nbytes,
+           library=lambda: torch.einsum("cgi,xcdg,dgj->xij", ao, W, ao),
            twin=lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_()).clone())
-    del ao, dwv, dwg, out, dms
+    if mask is not None:
+        _check(checks, rec(k2.NAME, "hermi_masked", gc=npts, fixed_order=False,
+                           masked_share=float(1.0 - mask.mean())),
+               lambda: k2.grid_rho1(ao, dms, 0, 0, mask, hermi=True),
+               lambda: k2.grid_rho1_plain(ao, dms, 0, 0, mask, hermi=True), True,
+               fl.grid_ao_flops(nz, nao, npts), fl.grid_ao_bytes(nz, nao, npts, isz, masked=True),
+               library=lambda: torch.einsum("c,cgi,xij,gj,g->xcg", rows, ao, dms, ao[0], mask),
+               twin=lambda: k2.grid_rho1(ao, dms, 0, 0, mask, hermi=True, fixed_order=True))
+        _check(checks, rec(k3.NAME, "ao_value_only", gc=npts, fixed_order=False),
+               lambda: k3.grid_back(dwv, None, ao, 0, 0, out.zero_()).clone(),
+               lambda: k3.grid_back_plain(dwv, None, ao, 0, 0, out.zero_()).clone(), True,
+               fl.grid_ao_value_flops(nz, nao, npts), fl.grid_ao_bytes(nz, nao, npts, isz, 1),
+               library=lambda: torch.einsum("xg,gi,gj->xij", dwv, ao[0], ao[0]),
+               twin=lambda: k3.grid_back(dwv, None, ao, 0, 0, out.zero_(),
+                                         fixed_order=True).clone())
+    del ao, mask, dwv, dwg, out, dms, W
     torch.cuda.empty_cache()
 
 
@@ -1072,8 +1180,281 @@ def phase6(data) -> dict:
     return rec
 
 
+# phase 9: the small-molecule flow.  The JAX package is not installed on the
+# card's host, so the gates are constants copied from tests/test_golden.py,
+# with its tolerances (the reference notebooks' stored outputs)
+N2_TDA_EV = (9.0614, 9.1420, 9.1420)  # example/TDA.ipynb cell 2
+N2_GATE_EV = 2e-3
+CH2O_XTDA_EV = (3.8634, 5.3476, 5.7484, 6.6386, 7.9075)  # example/TDA.ipynb cell 6
+CH2O_UTDA_EV = (3.9889, 5.4592, 5.8050)  # example/TDA.ipynb cell 4
+CH2O_GATE_EV = 0.02
+INCORE_VS_DENSE_EV = 1e-6  # the same matrix, Davidson at 1e-7 against eigh
+DF_VS_INCORE_EV = 2e-3  # a DF response on an in-core mean field (tests/test_df.py:135)
+FH_E_SCF_HA = -100.038593827451  # example/'spin up.ipynb' cell 1, the aufbau 3Pi state
+FH_E_GATE_HA = 5e-5
+FH_SIGMA_IRREPS = {"A1": (4, 2), "B1": (1, 1), "B2": (1, 1)}  # the 3Sigma state
+FH_XSF_ALDA0_EV = (-12.09424, -2.16162, -2.16162, 2.94771)  # example/XSF_TDA.ipynb cell 2
+FH_XSF_MCOL_EV = (-12.16628, -2.57263, -2.57263, 3.04828)  # cell 3
+FH_USF_EV = (-11.79723, -2.28512, -2.28512, 0.61990)  # cell 6
+FH_GATE_EV = 5e-3
+FH_PI_PAIR_EV = 1e-4
+# Be aug-cc-pVTZ XSF-TDA: the JAX package's own f64 dense roots on its
+# transcription of the basis (tests/test_golden.py:128-131)
+BE_XSF_EV = (-2.56973318, 1.99570962, 2.09599853, 2.09776155, 3.70486163,
+             4.05152929, 4.07001792, 4.07045315, 4.15750166, 4.15993487)
+BE_GATE_EV = 0.01
+# benzene: on a closed-shell reference the unrestricted matrix splits
+# exactly into the singlet and triplet blocks
+UNION_GATE_EV = 1e-8
+
+
+class _Leg:
+    """One leg of phase 9: its record, the kernel launches over the whole
+    leg, and the gates that failed."""
+
+    def __init__(self, name):
+        from xtddft_tpu_torch import kernels
+
+        self.name, self.rec, self.failed = name, {}, []
+        kernels.reset_launch_counts()
+        self.t0 = time.perf_counter()
+
+    def gate(self, ok: bool, what: str) -> None:
+        if not ok:
+            self.failed.append(what)
+
+    def env(self, scf) -> None:
+        """Build the SCF's Env ahead of its first cycle, timed by part: the
+        grid and the AO table, the ERIs (host engine and upload), the
+        exchange-ordered copy; ``df=None`` must have picked in-core."""
+        env = scf.env
+        s = time.perf_counter()
+        env.grid_weights, env.ao
+        torch.cuda.synchronize()
+        t_grid = time.perf_counter() - s
+        s = time.perf_counter()
+        env.eri
+        torch.cuda.synchronize()
+        t_eri = time.perf_counter() - s
+        s = time.perf_counter()
+        env.eri_k()
+        torch.cuda.synchronize()
+        self.rec.setdefault("env", []).append({
+            "nao": env.nao, "npts": int(env.grid.size), "df": env.df, "grid_s": t_grid,
+            "eri_s": t_eri, "eri_k_s": time.perf_counter() - s,
+            "eri_gb": env.eri.numel() * env.eri.element_size() / 1e9})
+        self.gate(not env.df, f"{env.nao} AO: df=None did not pick the in-core route")
+
+    def scf(self, label, scf, **kw):
+        """The SCF with its stages timed (``SCF.profile``)."""
+        scf.profile = True
+        s = time.perf_counter()
+        mf = scf.kernel(**kw)
+        torch.cuda.synchronize()
+        self.rec[label] = {"cycles": scf.cycles, "converged": mf.converged, "e_tot": mf.e_tot,
+                           "scf_s": time.perf_counter() - s,
+                           "stage_s": dict(scf.stage_seconds)}
+        self.gate(mf.converged, f"{label}: the SCF did not converge")
+        return mf
+
+    def solve(self, label, run):
+        """A response through its driver: route, seconds and roots."""
+        s = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        self.rec[label] = {"route": res.solver, "solve_s": time.perf_counter() - s,
+                           "cycles": res.cycles, "converged": res.converged,
+                           "e_ev": res.e_eV.tolist()}
+        self.gate(res.converged, f"{label}: not converged")
+        return res
+
+    def near(self, label, got, want, tol) -> float:
+        dev = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+        self.rec.setdefault("dev_ev", {})[label] = dev
+        self.gate(dev < tol, f"{label}: max deviation {dev} eV, gate {tol}")
+        return dev
+
+    def close(self, **extras) -> dict:
+        """Read the leg's seconds and launches, then run ``extras`` (name ->
+        callable, timings outside the leg's own work) into the record."""
+        from xtddft_tpu_torch import kernels
+
+        torch.cuda.synchronize()
+        self.rec["leg_s"] = time.perf_counter() - self.t0
+        self.rec["launches"] = launches = kernels.launch_counts()
+        for key, fn in extras.items():
+            self.rec[key] = fn()
+        self.gate(launches["grid_rho1"] > 0 and launches["grid_back"] > 0,
+                  f"K2 and K3 must launch in every leg with a functional: {launches}")
+        tag = f"phase 9 {self.name}"
+        for e in self.rec.get("env", []):
+            _log(f"{tag} env: {e['nao']} AO, {e['npts']} grid points, df {e['df']}; grid + AO "
+                 f"table {e['grid_s']:.3f} s, ERIs {e['eri_s']:.3f} s ({e['eri_gb']:.3f} GB), "
+                 f"exchange-ordered copy {e['eri_k_s']:.4f} s")
+        for key, r in self.rec.items():
+            if isinstance(r, dict) and "cycles" in r and "stage_s" in r:
+                stages = ", ".join(f"{k} {v:.4f}" for k, v in r["stage_s"].items())
+                _log(f"{tag} scf {key}: {r['cycles']} cycles, {r['scf_s']:.3f} s ({stages})")
+            elif isinstance(r, dict) and "route" in r:
+                _log(f"{tag} {key}: route {r['route']}, {r['solve_s']:.3f} s, "
+                     f"cycles {r['cycles']}")
+        _log(f"{tag} launches: K2 {launches['grid_rho1']}, K3 {launches['grid_back']}, "
+             f"K1 {launches['df_exchange']}; leg {self.rec['leg_s']:.2f} s")
+        _log(tag, json.dumps(self.rec))
+        if self.failed:
+            raise AssertionError(f"phase 9 {self.name}: {self.failed}")
+        return self.rec
+
+
+def _dense_routes_ms(ref) -> dict:
+    """CUDA-event ms of the plain-PyTorch routes of the dense backend at a
+    closed-shell reference (no kernel of their own; the JAX package runs
+    them as einsums): the in-core J and K of two density matrices (one
+    product each with the ERI matrix and its exchange-ordered copy), the
+    quarter transforms of (ov|ov), the per-point Hessian, the pair-feature
+    GEMMs of the three fxc blocks, and eigh of the TDA and UTDA
+    matrices."""
+    from xtddft_tpu_torch.response import dense
+    from xtddft_tpu_torch.response.fxc_tensor import fxc_blocks, weighted_hessian
+    from xtddft_tpu_torch.response.moeri import mo_eri
+    from xtddft_tpu_torch.response.sigma import _rho0
+
+    env = ref.env
+    o, v = env.tensor(ref.orbo_a), env.tensor(ref.orbv_a)
+    dms = env.tensor(np.stack([ref.orbo_a @ ref.orbo_a.T] * 2))
+    rho0 = _rho0(ref)
+    A = dense.tda_singlet_dense(ref)
+    U = dense.utda_dense(ref)
+    out = {"dim_tda": A.shape[0], "dim_utda": U.shape[0],
+           "jk": time_ms(lambda: env.get_jk(dms)),
+           "mo_eri_ovov": time_ms(lambda: mo_eri(env.eri, o, v, o, v)),
+           "hessian": time_ms(lambda: weighted_hessian(ref.spec, env.grid_weights, rho0), 1),
+           "fxc_blocks": time_ms(lambda: fxc_blocks(ref.spec, env.ao, env.grid_weights, rho0,
+                                                    (o, v), (o, v), same=True), 1),
+           "eigh_tda": time_ms(lambda: torch.linalg.eigh(A)),
+           "eigh_utda": time_ms(lambda: torch.linalg.eigh(U)),
+           "tda_singlet_dense": time_ms(lambda: dense.tda_singlet_dense(ref), 1)}
+    nov = A.shape[0]
+    out["fxc_gemm_tflop"] = 3 * 2.0 * nov * nov * 4 * int(env.grid.size) / 1e12
+    return out
+
+
+def _incore_sigma_ms(ref, nvec: int = 5) -> dict:
+    """CUDA-event ms of one in-core X-TDA sigma build of ``nvec`` vectors and
+    of its parts: J and K of the 2 nvec transition matrices (one product each
+    with the ERI matrices), and the XC term `fxc_v1mat` (K2, the jvp, K3)."""
+    from xtddft_tpu_torch.response.sigma import _rho0, xtda_sigma_operator
+    from xtddft_tpu_torch.xc.interface import fxc_v1mat
+
+    env = ref.env
+    op = xtda_sigma_operator(ref)
+    g = torch.Generator(device=env.device).manual_seed(9)
+    z = torch.randn((nvec, op.dim), generator=g, device=env.device, dtype=env.dtype)
+    d = torch.randn((nvec, 2, env.nao, env.nao), generator=g, device=env.device,
+                    dtype=env.dtype)
+    rho0 = _rho0(ref)
+    return {"nvec": nvec, "build": time_ms(lambda: op.matvec(z)),
+            "j": time_ms(lambda: env.incore_j(d[:, 0] + d[:, 1])),
+            "k": time_ms(lambda: env.incore_k(d.reshape(-1, env.nao, env.nao))),
+            "fxc_v1mat": time_ms(lambda: fxc_v1mat(ref.spec, env.ao, env.grid_weights, rho0, d))}
+
+
+def phase9() -> dict:
+    """The small-molecule flow through the public API, ``df=None`` (in-core
+    below 121 AO) and ``backend="auto"`` (dense), f64, each leg gated as
+    tests/test_golden.py gates the JAX package."""
+    from xtddft_tpu_torch.chem import Molecule, geometries as G
+    from xtddft_tpu_torch.methods.drivers import TDA, UTDA, XSFTDA, XTDA
+    from xtddft_tpu_torch.response.reference_state import make_reference
+    from xtddft_tpu_torch.scf import RKS, ROKS, UKS
+    from xtddft_tpu_torch.scf.occupations import occ_from_irreps
+
+    out = {}
+    leg = _Leg("n2")
+    scf = RKS(Molecule.from_atoms(G.n2, basis="cc-pvdz"), xc="b3lyp", grid_level=3,
+              device="cuda")
+    leg.env(scf)
+    mf = leg.scf("rks", scf)
+    r = leg.solve("tda", lambda: TDA(mf, nstates=3).kernel())
+    leg.gate(r.solver == "dense", "N2 TDA: not the dense route")
+    leg.near("tda", r.e_eV, N2_TDA_EV, N2_GATE_EV)
+    out["n2"] = leg.close()
+    leg = _Leg("ch2o")
+    mol = Molecule.from_atoms(G.ch2o_vacuum, basis="cc-pvdz", charge=1, spin=1)
+    scf = ROKS(mol, xc="b3lyp", grid_level=3, device="cuda")
+    leg.env(scf)
+    mf = leg.scf("roks", scf)
+    dense = leg.solve("xtda", lambda: XTDA(mf, nstates=5).kernel())
+    leg.gate(dense.solver == "dense", "CH2O+ X-TDA: auto did not pick the dense route")
+    leg.near("xtda", dense.e_eV, CH2O_XTDA_EV, CH2O_GATE_EV)
+    incore = leg.solve("xtda_incore", lambda: XTDA(mf, nstates=5, backend="incore").kernel())
+    leg.near("incore_vs_dense", incore.e_eV, dense.e_eV, INCORE_VS_DENSE_EV)
+    df = leg.solve("xtda_df", lambda: XTDA(mf, nstates=5, backend="df").kernel())
+    leg.near("df_vs_incore", df.e_eV, incore.e_eV, DF_VS_INCORE_EV)
+    mfu = leg.scf("uks", UKS(mol, xc="b3lyp", env=scf.env))
+    r = leg.solve("utda", lambda: UTDA(mfu, nstates=3).kernel())
+    leg.near("utda", r.e_eV, CH2O_UTDA_EV, CH2O_GATE_EV)
+    out["ch2o"] = leg.close(sigma_ms=lambda: _incore_sigma_ms(make_reference(mf)))
+    leg = _Leg("fh")
+    mol = Molecule.from_atoms(G.fh, basis="6-31g", spin=2)
+    scf = ROKS(mol, xc="bhandhlyp", grid_level=3, device="cuda")
+    leg.env(scf)
+    mf_pi = leg.scf("roks_aufbau", scf)
+    d_e = mf_pi.e_tot - FH_E_SCF_HA
+    leg.rec["roks_aufbau"]["de_vs_golden_ha"] = d_e
+    leg.gate(abs(d_e) < FH_E_GATE_HA, f"FH aufbau ROKS energy off by {d_e} Ha")
+    occ, init = occ_from_irreps(mf_pi, FH_SIGMA_IRREPS)
+    mf = leg.scf("roks_sigma", ROKS(mol, xc="bhandhlyp", env=scf.env), occ=occ, init=init)
+    a0 = leg.solve("xsf_alda0", lambda: XSFTDA(mf, nstates=4, method=0).kernel())
+    leg.near("xsf_alda0", a0.e_eV, FH_XSF_ALDA0_EV, FH_GATE_EV)
+    mc = leg.solve("xsf_mcol", lambda: XSFTDA(mf, nstates=4, method=1).kernel())
+    leg.near("xsf_mcol", mc.e_eV, FH_XSF_MCOL_EV, FH_GATE_EV)
+    leg.near("xsf_mcol_pi_pair", mc.e_eV[1], mc.e_eV[2], FH_PI_PAIR_EV)
+    dv = leg.solve("xsf_davidson", lambda: XSFTDA(mf, nstates=4, method=0,
+                                                  use_davidson=True).kernel())
+    leg.gate(dv.solver == "incore", "use_davidson did not pick the in-core route")
+    leg.near("xsf_davidson_vs_dense", dv.e_eV, a0.e_eV, INCORE_VS_DENSE_EV)
+    mf0 = leg.scf("uks_aufbau", UKS(mol, xc="bhandhlyp", env=scf.env))
+    mfu = leg.scf("uks_sigma", UKS(mol, xc="bhandhlyp", env=scf.env),
+                  occ=([0, 1, 2, 3, 4, 5], [0, 1, 3, 4]), init=mf0.mo_coeff)
+    r = leg.solve("usf", lambda: XSFTDA(mfu, nstates=4, SA=0, method=0).kernel(remove=False))
+    leg.near("usf", r.e_eV, FH_USF_EV, FH_GATE_EV)
+    out["fh"] = leg.close()
+    leg = _Leg("be")
+    scf = ROKS(Molecule.from_atoms("Be 0 0 0", basis="aug-cc-pvtz", spin=2),
+               xc="bhandhlyp", grid_level=3, device="cuda")
+    leg.env(scf)
+    mf = leg.scf("roks", scf)
+    r = leg.solve("xsf", lambda: XSFTDA(mf, nstates=10).kernel())
+    leg.near("xsf", r.e_eV, BE_XSF_EV, BE_GATE_EV)
+    out["be"] = leg.close()
+    leg = _Leg("benzene")
+    # the library gives benzene's coordinates in bohr (C-C 2.638, C-H 2.053)
+    scf = RKS(Molecule.from_atoms(G.benzene, basis="cc-pvdz", unit="bohr"), xc="b3lyp",
+              grid_level=3, device="cuda")
+    leg.env(scf)
+    mf = leg.scf("rks", scf)
+    sg = leg.solve("tda_singlet", lambda: TDA(mf, nstates=10).kernel())
+    tr = leg.solve("tda_triplet", lambda: TDA(mf, nstates=10, singlet=False).kernel())
+    u = leg.solve("utda", lambda: UTDA(mf, nstates=10).kernel())
+    leg.gate({sg.solver, tr.solver, u.solver} == {"dense"}, "benzene: not the dense route")
+    union = np.sort(np.concatenate([sg.e_eV, tr.e_eV]))[:10]
+    # UTDA carries the whole occupied and virtual Fock blocks, TDA their
+    # diagonal (both as the JAX builders): the SCF's last Fock off the
+    # diagonal in its own orbitals is what separates the two
+    ref = make_reference(mf)
+    f = ref.fock_a_mo
+    no_ = ref.nc
+    leg.rec["fock_offdiag_max_ha"] = max(
+        float(np.abs(blk - np.diag(np.diag(blk))).max())
+        for blk in (f[:no_, :no_], f[no_:, no_:]))
+    leg.near("utda_vs_tda_union", u.e_eV, union, UNION_GATE_EV)
+    out["benzene"] = leg.close(routes_ms=lambda: _dense_routes_ms(ref))
+    return out
+
+
 def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
-    """Phases 0-8 into ``record``, in the order that lets the later ones
+    """Phases 0-9 into ``record``, in the order that lets the later ones
     reuse what the earlier built; the seconds since the start after each."""
     def done(name):
         _log(f"{name} done at {time.perf_counter() - t_start:.1f} s")
@@ -1104,6 +1485,11 @@ def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
     done("phase 4")
     record["bench_flip"] = phase6(data)
     done("phase 6")
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["small"] = phase9()
+    done("phase 9")
 
 
 def main(argv=None) -> int:
@@ -1147,6 +1533,17 @@ def main(argv=None) -> int:
                         if c["kernel"] == m.NAME and c["shape"] == "dzp_ao"
                         and c["mode"] in ("ao", "hermi")][0]
         dzp = record["dzp"]
+        # phase 9's shapes: the benzene SCF pair (K2 hermitian, K3 AO; K1 has
+        # no in-core mode)
+        small_check = ([c for c in record["kernels"]["checks"]
+                        if c["kernel"] == m.NAME and c["shape"] == "benzene_scf"
+                        and c["dtype"] == "float64" and c["mode"] in ("ao", "hermi")] or [{}])[0]
+        # the in-core sigma's own modes on CH2O+, f64: K2 masked, K3's value
+        # term on the AO table (K1 has no in-core mode)
+        sigma_check = ([c for c in record["kernels"]["checks"]
+                        if c["kernel"] == m.NAME and c["shape"] == "ch2o_sigma"
+                        and c["dtype"] == "float64"
+                        and c["mode"] in ("hermi_masked", "ao_value_only")] or [{}])[0]
         entries.append({
             "name": m.NAME, "route": m.ROUTE, "source": m.SOURCE, "replaces": m.REPLACES,
             "launches": record["ttm"]["launches"][m.NAME],
@@ -1171,6 +1568,12 @@ def main(argv=None) -> int:
                                                   "bound_by", "library_ms")},
             **{f"dzp_scf_{k}": dzp_ao_check[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                          "bound_ms", "bound_by", "library_ms")},
+            "launches_small": {leg: r["launches"][m.NAME] for leg, r in record["small"].items()},
+            **{f"benzene_scf_{k}": small_check.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                                                "bound_ms", "library_ms")},
+            **{f"incore_sigma_{k}": sigma_check.get(k) for k in ("mode", "max_abs_err", "ms",
+                                                                 "plain_ms", "bound_ms",
+                                                                 "library_ms")},
         })
     record["total_s"] = time.perf_counter() - t_start
     _log("total seconds", record["total_s"])

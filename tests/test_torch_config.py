@@ -155,3 +155,19 @@ def test_scf_fock_build_counts(exchange):
     assert f["total"] == f["k1"] + f["coulomb"] + f["k2"] + f["k3"]
     ms, by = flops.bound_ms(f["k2"], flops.grid_ao_bytes(2, nao, npts, 8), "float64")
     assert by == "operations" and 0.37 < ms < 0.39
+
+
+def test_incore_sigma_grid_counts():
+    """The in-core sigma's two AO modes at CH2O+/cc-pVDZ's stack (10
+    matrices, 38 AO, 100,738 points): K3's value term at its least is one
+    triangle of the outer product per point, (nao + 2) / (2 nao + 1) of
+    K3's value-only count on two distinct tables, and its bytes read one AO row
+    and one grid row; K2's mask adds one read per point."""
+    nz, nao, npts = 10, 38, 100738
+    assert flops.grid_ao_value_flops(nz, nao, npts) == nz * npts * (nao * nao + 2 * nao)
+    assert flops.grid_ao_value_flops(nz, nao, npts) * (2 * nao + 1) == (
+        flops.grid_back_flops(nz, nao, nao, npts, 1) * (nao + 2))
+    assert flops.grid_ao_bytes(nz, nao, npts, 8, 1) == 8.0 * (npts * nao + nz * npts
+                                                             + nz * nao * nao)
+    assert flops.grid_ao_bytes(nz, nao, npts, 8, masked=True) == (
+        flops.grid_ao_bytes(nz, nao, npts, 8) + 8.0 * npts)

@@ -237,12 +237,12 @@ def test_drivers(mean_fields, method):
     jmf, mf = mean_fields
     if method == "xsf":
         want = jax_drivers.XSFTDA(jmf, nstates=4, SA=3, backend="df").kernel()
-        got = drivers.XSFTDA(mf, nstates=4, SA=3).kernel()
+        got = drivers.XSFTDA(mf, nstates=4, SA=3, backend="df").kernel()
         assert got.ds2 is None and want.ds2 is None  # fixed by the spin adaptation
     else:
         extype = method[3:]
         want = jax_drivers.SFTDA(jmf, nstates=4, extype=extype, backend="df").kernel()
-        got = drivers.SFTDA(mf, nstates=4, extype=extype).kernel()
+        got = drivers.SFTDA(mf, nstates=4, extype=extype, backend="df").kernel()
         if extype == "down":
             np.testing.assert_allclose(got.ds2, want.ds2, rtol=0, atol=1e-6)
         else:
@@ -286,10 +286,10 @@ def test_driver_refusals(mean_fields):
         drivers.XSFTDA(mf, nstates=2).kernel(frozen=1)
     with pytest.raises(ValueError, match="exceeds nc"):
         drivers.XSFTDA(mf, nstates=2).kernel(frozen=99, remove=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        drivers.XSFTDA(mf, nstates=2, symmetry=True).kernel()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        drivers.SFTDA(mf, nstates=2, backend="dense").kernel()
+    with pytest.raises(ValueError, match="frozen core requires"):
+        drivers.XSFTDA(mf, nstates=2, backend="incore").kernel(frozen=1, remove=False)
+    with pytest.raises(ValueError, match="backend"):
+        drivers.SFTDA(mf, nstates=2, backend="bogus").kernel()
     with pytest.raises(ValueError, match="extype"):
         drivers.SFTDA(mf, nstates=2, extype="sideways").kernel()
 
@@ -374,6 +374,6 @@ def test_xsftda_frozen_core(mean_fields):
     """`XSFTDA.kernel(frozen=1, remove=False)` through both packages."""
     jmf, mf = mean_fields
     want = jax_drivers.XSFTDA(jmf, nstates=3, SA=3, backend="df").kernel(frozen=1, remove=False)
-    got = drivers.XSFTDA(mf, nstates=3, SA=3).kernel(frozen=1, remove=False)
+    got = drivers.XSFTDA(mf, nstates=3, SA=3, backend="df").kernel(frozen=1, remove=False)
     assert got.converged and got.v.shape == np.asarray(want.v).shape
     np.testing.assert_allclose(got.e, np.asarray(want.e), rtol=0, atol=1e-8)

@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.xc.interface",
     "xtddft_tpu_torch.xc.mcol",
     "xtddft_tpu_torch.chem.geometries",
+    "xtddft_tpu_torch.chem.symmetry",
     "xtddft_tpu_torch.scf",
     "xtddft_tpu_torch.scf.env",
     "xtddft_tpu_torch.scf.diis",
@@ -34,15 +35,21 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.scf.checkpoint",
     "xtddft_tpu_torch.scf.project",
     "xtddft_tpu_torch.scf.guess",
+    "xtddft_tpu_torch.scf.occupations",
     "xtddft_tpu_torch.response.reference_state",
     "xtddft_tpu_torch.response.sigma",
     "xtddft_tpu_torch.response.sigma_df",
     "xtddft_tpu_torch.response.spaces",
     "xtddft_tpu_torch.response.xsf_terms",
     "xtddft_tpu_torch.response.flops",
+    "xtddft_tpu_torch.response.moeri",
+    "xtddft_tpu_torch.response.fxc_tensor",
+    "xtddft_tpu_torch.response.dense",
+    "xtddft_tpu_torch.response.sigma_xsf",
     "xtddft_tpu_torch.solver.davidson",
     "xtddft_tpu_torch.props.oscillator",
     "xtddft_tpu_torch.props.spin",
+    "xtddft_tpu_torch.props.irreps",
     "xtddft_tpu_torch.methods.drivers",
     "xtddft_tpu_torch.kernels",
 ]

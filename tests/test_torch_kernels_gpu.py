@@ -208,6 +208,40 @@ def test_ao_modes_match_plain(cuda, nao, dtype, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nao", [11, 38, 114])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_incore_sigma_modes_match_plain(cuda, nao, dtype, rtol):
+    """The in-core sigma's modes (`xc/interface.fxc_v1mat`, `sf_v1mat`): K2
+    hermitian on 10 symmetrized transition matrices with a 0/1 mask, and
+    K3's value term alone with the AO table on both sides, in the atomic
+    order the sigma runs and in the fixed order, on a ragged 4099-point
+    grid."""
+    g = torch.Generator(cuda).manual_seed(11)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda, dtype=dtype)
+
+    nz, gc = 10, 4099
+    d = randn(nz, nao, nao)
+    dms = 0.5 * (d + d.transpose(1, 2))
+    ao = randn(4, gc, nao)
+    mask = (torch.rand(gc, generator=g, device=cuda) > 0.06).to(dtype)
+    dwv = randn(nz, gc)
+    before = (k2.launches, k3.launches)
+    want = k2.grid_rho1_plain(ao, dms, 0, 0, mask, hermi=True)
+    assert not want[:, :, mask == 0].any()
+    for fixed in (False, True):
+        _rel_close(k2.grid_rho1(ao, dms, 0, 0, mask, hermi=True, fixed_order=fixed), want, rtol)
+    out = torch.zeros((nz, nao, nao), device=cuda, dtype=dtype)
+    want = k3.grid_back_plain(dwv, None, ao, 0, 0, out.clone())
+    for fixed in (False, True):
+        _rel_close(k3.grid_back(dwv, None, ao, 0, 0, out.clone(), fixed_order=fixed), want, rtol)
+    assert (k2.launches, k3.launches) == tuple(n + 2 for n in before)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nao", [183, 598])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
                          ids=["f64", "f32"])

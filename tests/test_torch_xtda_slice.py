@@ -49,6 +49,8 @@ def test_delta_s2(results):
 
 
 def test_other_backends_raise():
+    """The dense and in-core backends are ported (tests/test_torch_dense.py);
+    a backend the drivers do not know raises."""
     mf = load_mf(CKPT, df=True, device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        XTDA(mf, nstates=2, backend="dense").kernel()
+    with pytest.raises(ValueError, match="backend"):
+        XTDA(mf, nstates=2, backend="bogus").kernel()

@@ -1,12 +1,19 @@
 """User-facing excited-state method drivers.
 
-Counterpart of the JAX package's `methods/drivers.py`.  Ported so far:
+Counterpart of the JAX package's `methods/drivers.py`:
 
+- TDA     closed-shell singlet/triplet TDA (dense)
+- UTDA    unrestricted TDA, blocked layout (dense)
 - XTDA    spin-adapted X-TDA on a ROKS/ROHF reference
 - SFTDA   spin-flip TDA, extype 'up' (Sf = Si + 1) or 'down' (Sf = Si - 1)
 - XSFTDA  spin-adapted spin-flip-down XSF-TDA (arXiv:2511.16906)
 
-each as a density-fitted sigma + block Davidson (backend 'df').
+XTDA, SFTDA and XSFTDA take ``backend``: 'dense' (the full matrix on the
+Env's device and ``torch.linalg.eigh`` there, f64), 'incore' (the in-core
+sigma operators and the block Davidson at the JAX host solver's tolerance,
+1e-7), 'df' (the density-fitted sigma and the block Davidson), or 'auto'
+(the default): DF above 120 AOs or a dimension of 4000, dense below, as in
+the JAX package.  ``ExcitationResult.solver`` names the route taken.
 """
 
 from __future__ import annotations
@@ -15,11 +22,19 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 from xtddft_tpu_torch import units
 from xtddft_tpu_torch.props import oscillator, spin
+from xtddft_tpu_torch.response import dense
 from xtddft_tpu_torch.response.reference_state import Reference, make_reference
+from xtddft_tpu_torch.response.spaces import so2st
 from xtddft_tpu_torch.scf.driver import MeanField
+
+# the JAX host Davidson's defaults, which its in-core backend runs at
+INCORE_TOL = 1e-7
+INCORE_MAX_CYCLE = 200
+BACKENDS = ("auto", "dense", "incore", "df")
 
 
 @dataclasses.dataclass
@@ -30,6 +45,7 @@ class ExcitationResult:
     rot: np.ndarray | None = None
     ds2: np.ndarray | None = None
     converged: bool = True
+    irreps: list | None = None  # Mulliken labels (with symmetry=True)
     solver: str | None = None  # which eigensolver path produced e/v
     cycles: int | None = None  # Davidson cycles of the solve
 
@@ -46,14 +62,40 @@ def _ref_of(mf) -> Reference:
     raise TypeError(f"expected MeanField or Reference, got {type(mf)}")
 
 
-def _resolve_backend(backend: str) -> str:
-    """Only the density-fitted backend ('df': DF sigma + device Davidson)
-    is ported; 'auto' resolves to it."""
-    if backend in ("df", "auto"):
+def _resolve_backend(ref: Reference, backend: str, dim: int, use_davidson: bool = False) -> str:
+    """'dense' (full eigh), 'incore' (matrix-free in-core sigma + Davidson)
+    or 'df' (density-fitted sigma + Davidson); 'auto' picks by size as the
+    JAX package does (`methods/drivers.py:60`): the explicit
+    ``use_davidson`` flag means 'incore', more than 120 AOs or a dimension
+    above 4000 means 'df', anything smaller 'dense'."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    if backend != "auto":
+        return backend
+    if use_davidson:
+        return "incore"
+    if ref.env.nao > 120 or dim > 4000:
         return "df"
-    raise NotImplementedError(
-        f"backend {backend!r}: only 'df' is ported; the dense and in-core "
-        "backends are in ROADMAP queue 1, item 6")
+    return "dense"
+
+
+def _eigh(A: torch.Tensor):
+    """Full eigendecomposition on A's device; host numpy (e, v)."""
+    e, v = torch.linalg.eigh(A)
+    return e.cpu().numpy(), v.cpu().numpy()
+
+
+def _incore_solve(op, nroots: int, pick_positive: bool = False):
+    """The block Davidson on an in-core operator at the JAX host solver's
+    tolerance and cycle cap.  Returns (e, v(dim, nroots), conv, info)."""
+    from xtddft_tpu_torch.solver.davidson import davidson
+
+    nroots = min(nroots, op.dim)
+    e, vv, conv, info = davidson(
+        op.matvec, op.hdiag, nroots=nroots, init_guess=op.init_guess(nroots),
+        tol=INCORE_TOL, max_cycle=INCORE_MAX_CYCLE, pick_positive=pick_positive,
+        device=op.device, dtype=op.dtype)
+    return e, vv, conv, info
 
 
 def _restrict_sigma_op(op, keep: np.ndarray):
@@ -102,91 +144,183 @@ def _df_solve(build_data, make_op, nroots: int, pick_positive: bool = False):
     return e, vv, conv, op, "davidson", info
 
 
-class XTDA:
-    """Spin-adapted spin-conserving X-TDA on a restricted-open reference.
+class TDA:
+    """Closed-shell TDA on an RKS/RHF reference, dense: the singlet (default)
+    or triplet matrix diagonalized on the device."""
 
-    mf: a MeanField or a Reference.  backend: 'df' (density-fitted sigma
-    with J/K from the fitted B tensor, MO-grid fxc and dA, solved by the
-    device block Davidson)."""
-
-    def __init__(self, mf, nstates: int = 10, backend: str = "df"):
+    def __init__(self, mf, nstates: int = 5, singlet: bool = True):
         self.ref = _ref_of(mf)
         self.nstates = nstates
-        self.backend = backend
-        if not self.ref.restricted_open:
-            raise ValueError("XTDA requires a ROKS/ROHF reference")
+        self.singlet = singlet
+        if self.ref.no != 0:
+            raise ValueError(
+                "TDA requires a closed-shell (RKS/RHF) reference; use UTDA "
+                "or XTDA for open-shell systems")
 
     def kernel(self) -> ExcitationResult:
-        from xtddft_tpu_torch.response.sigma_df import build_df_data, xtda_sigma_df
-
         ref = self.ref
-        _resolve_backend(self.backend)
-        e, vv, conv, op, label, info = _df_solve(
-            lambda: build_df_data(ref), xtda_sigma_df, self.nstates,
-            pick_positive=True,
-        )
-        v = op.to_blocked(vv)
+        A = dense.tda_singlet_dense(ref) if self.singlet else dense.tda_triplet_dense(ref)
+        e, v = _eigh(A)
+        n = min(self.nstates, e.shape[0])
+        e, v = e[:n], v[:, :n]
+        if self.singlet:
+            osc = oscillator.closed_shell_osc(ref, e, v)
+            rot = oscillator.closed_shell_rot(ref, e, v)
+        else:
+            osc = np.zeros(n)
+            rot = np.zeros(n)
+        return ExcitationResult(e=e, v=v, osc=osc, rot=rot, solver="dense")
+
+
+class UTDA:
+    """Unrestricted TDA in the blocked CV(a)|OV(a)|CO(b)|CV(b) layout, dense."""
+
+    def __init__(self, mf, nstates: int = 5):
+        self.ref = _ref_of(mf)
+        self.nstates = nstates
+
+    def kernel(self) -> ExcitationResult:
+        ref = self.ref
+        e, v = _eigh(dense.utda_dense(ref))
         n = min(self.nstates, e.shape[0])
         e, v = e[:n], v[:, :n]
         return ExcitationResult(
             e=e, v=v,
             osc=oscillator.spin_conserving_osc(ref, e, v),
             rot=oscillator.spin_conserving_rot(ref, e, v),
+            ds2=spin.utda_delta_s2(ref, v), solver="dense")
+
+
+class XTDA:
+    """Spin-adapted spin-conserving X-TDA on a restricted-open reference.
+
+    mf: a MeanField or a Reference.  backend: 'auto' | 'dense' | 'incore' |
+    'df' (the module docstring); ``use_davidson`` sends 'auto' to
+    'incore'; ``so2st_out`` returns the vectors in the spin-tensor basis;
+    ``symmetry`` labels each state's irrep."""
+
+    def __init__(self, mf, nstates: int = 10, so2st_out: bool = False,
+                 use_davidson: bool = False, backend: str = "auto",
+                 symmetry: bool = False):
+        self.ref = _ref_of(mf)
+        self.nstates = nstates
+        self.so2st_out = so2st_out
+        self.use_davidson = use_davidson
+        self.backend = backend
+        self.symmetry = symmetry
+        if not self.ref.restricted_open:
+            raise ValueError("XTDA requires a ROKS/ROHF reference")
+
+    def kernel(self) -> ExcitationResult:
+        ref = self.ref
+        dim = (ref.nc + ref.no) * ref.nv + ref.nc * (ref.no + ref.nv)
+        backend = _resolve_backend(ref, self.backend, dim, self.use_davidson)
+        cycles = None
+        if backend == "df":
+            from xtddft_tpu_torch.response.sigma_df import build_df_data, xtda_sigma_df
+
+            e, vv, conv, op, _, info = _df_solve(
+                lambda: build_df_data(ref), xtda_sigma_df, self.nstates,
+                pick_positive=True)
+            v, converged, cycles = op.to_blocked(vv), bool(np.all(conv)), info["cycles"]
+        elif backend == "incore":
+            from xtddft_tpu_torch.response.sigma import xtda_sigma_operator
+
+            op = xtda_sigma_operator(ref)
+            e, vv, conv, info = _incore_solve(op, self.nstates, pick_positive=True)
+            v, converged, cycles = op.to_blocked(vv), bool(np.all(conv)), info["cycles"]
+        else:
+            e, v = _eigh(dense.xtda_dense(ref))
+            converged = True
+        n = min(self.nstates, e.shape[0])
+        e, v = e[:n], v[:, :n]
+        irreps = None
+        if self.symmetry:
+            from xtddft_tpu_torch.props.irreps import state_irreps
+
+            irreps, _ = state_irreps(ref, v, kind="spin_conserving")
+        res = ExcitationResult(
+            e=e, v=v,
+            osc=oscillator.spin_conserving_osc(ref, e, v),
+            rot=oscillator.spin_conserving_rot(ref, e, v),
             ds2=spin.xtda_delta_s2(ref, v),
-            converged=bool(np.all(conv)), solver=label, cycles=info["cycles"],
-        )
+            converged=converged, irreps=irreps, solver=backend, cycles=cycles)
+        if self.so2st_out:
+            res.v = so2st(v, ref.nc, ref.no, ref.nv)
+        return res
 
 
 class SFTDA:
-    """Spin-flip TDA; extype='up' (Sf=Si+1) or 'down' (Sf=Si-1), each through
-    the density-fitted exchange + MO-grid SF kernel sigma
-    (`sigma_df.sf_sigma_df`) and the device block Davidson.
+    """Spin-flip TDA; extype='up' (Sf=Si+1) or 'down' (Sf=Si-1).
 
-    method: 0 = ALDA0, 1 = multicollinear, 2 = collinear (HF exchange only)."""
+    method: 0 = ALDA0, 1 = multicollinear, 2 = collinear (HF exchange only).
+    backend: 'auto' | 'dense' | 'incore' | 'df' (the module docstring)."""
 
     def __init__(self, mf, nstates: int = 5, extype: str = "down", method: int = 0,
-                 backend: str = "df"):
+                 use_davidson: bool = False, backend: str = "auto"):
         self.ref = _ref_of(mf)
         self.nstates = nstates
         self.extype = extype
         self.method = method
+        self.use_davidson = use_davidson
         self.backend = backend
 
     def kernel(self) -> ExcitationResult:
-        from xtddft_tpu_torch.response.sigma_df import build_df_data, sf_sigma_df
-
         ref = self.ref
-        _resolve_backend(self.backend)
+        if self.extype not in ("up", "down"):
+            raise ValueError(f"extype must be 'up' or 'down', got {self.extype!r}")
+        if self.extype == "up":
+            dim = ref.nc * ref.nv
+        else:
+            dim = (ref.nc + ref.no) * (ref.no + ref.nv)
+        backend = _resolve_backend(ref, self.backend, dim, self.use_davidson)
+        if backend == "df" and self.method == 2 and ref.hyb == 0.0 and ref.omega == 0.0:
+            backend = "dense"  # collinear pure functional: A is diagonal
+        converged, cycles = True, None
         # SF spectra are not positive (flip-down roots lie below the
         # high-spin reference): keep every eigenvalue
-        e, vv, conv, op, label, info = _df_solve(
-            lambda: build_df_data(ref),
-            lambda data: sf_sigma_df(data, extype=self.extype, method=self.method),
-            self.nstates, pick_positive=False,
-        )
-        v = op.to_blocked(vv) if self.extype == "down" else vv
+        if backend == "df":
+            from xtddft_tpu_torch.response.sigma_df import build_df_data, sf_sigma_df
+
+            e, vv, conv, op, _, info = _df_solve(
+                lambda: build_df_data(ref),
+                lambda data: sf_sigma_df(data, extype=self.extype, method=self.method),
+                self.nstates, pick_positive=False)
+            v, converged, cycles = op.to_blocked(vv), bool(np.all(conv)), info["cycles"]
+        elif backend == "incore":
+            from xtddft_tpu_torch.response.sigma import sf_sigma_operator
+
+            op = sf_sigma_operator(ref, self.extype, self.method)
+            e, vv, conv, info = _incore_solve(op, self.nstates)
+            v, converged, cycles = op.to_blocked(vv), bool(np.all(conv)), info["cycles"]
+        else:
+            A = (dense.sf_up_dense(ref, self.method) if self.extype == "up"
+                 else dense.sf_down_dense(ref, self.method))
+            e, v = _eigh(A)
         n = min(self.nstates, e.shape[0])
         e, v = e[:n], v[:, :n]
         ds2 = None
         if self.extype == "down" and ref.restricted_open:
             ds2 = spin.xsf_delta_s2_roks(ref, v)
-        return ExcitationResult(e=e, v=v, ds2=ds2, converged=bool(np.all(conv)),
-                                solver=label, cycles=info["cycles"])
+        return ExcitationResult(e=e, v=v, ds2=ds2, converged=converged,
+                                solver=backend, cycles=cycles)
 
 
 class XSFTDA:
-    """Spin-adapted spin-flip-down XSF-TDA (arXiv:2511.16906) through
-    `sigma_df.xsf_sigma_df` and the device block Davidson.
+    """Spin-adapted spin-flip-down XSF-TDA (arXiv:2511.16906).
 
     SA: spin-adaptation level 0-3 (default 3 on a restricted-open reference,
-    else 0); method: 0 = ALDA0, 1 = multicollinear kernel."""
+    else 0); method: 0 = ALDA0, 1 = multicollinear kernel; backend: 'auto' |
+    'dense' | 'incore' | 'df' (the module docstring); ``symmetry`` labels
+    each state's irrep."""
 
     def __init__(self, mf, nstates: int = 5, SA: int | None = None, method: int = 0,
-                 backend: str = "df", symmetry: bool = False):
+                 use_davidson: bool = False, backend: str = "auto", symmetry: bool = False):
         self.ref = _ref_of(mf)
         self.nstates = nstates
         self.SA = SA if SA is not None else (3 if self.ref.restricted_open else 0)
         self.method = method
+        self.use_davidson = use_davidson
         self.backend = backend
         self.symmetry = symmetry
 
@@ -196,16 +330,11 @@ class XSFTDA:
         """remove: project the Sf=Si contaminant out of the OO block (default:
         on a restricted-open reference).  frozen: drop the innermost
         ``frozen`` core orbitals from the CV and CO excitation blocks
-        (True means 1; with remove=False only).  fglobal: the dA scaling,
-        default (1 - d_lda) * cx + d_lda, damped by 4 (cx - 1/2)^2 on the
-        multicollinear kernel when ``fit``."""
-        from xtddft_tpu_torch.response.sigma_df import build_df_data, xsf_sigma_df
-
+        (True means 1; with remove=False and the dense or DF backend only).
+        fglobal: the dA scaling, default (1 - d_lda) * cx + d_lda, damped by
+        4 (cx - 1/2)^2 on the multicollinear kernel when ``fit``."""
         ref = self.ref
         n = nstates if nstates is not None else self.nstates
-        if self.symmetry:
-            raise NotImplementedError(
-                "symmetry=True (state irreps): not ported yet (ROADMAP queue 1, item 6)")
         if self.SA > 0 and ref.no < 2:
             # the spin-adaptation factors contain 1/(2S-1) terms: singular
             # for a doublet reference
@@ -222,31 +351,65 @@ class XSFTDA:
             fglobal = (1.0 - d_lda) * cx + d_lda
             if self.method == 1 and fit:
                 fglobal = fglobal * 4.0 * (cx - 0.5) ** 2
-        _resolve_backend(self.backend)
-        dim = (ref.nc + ref.no) * (ref.no + ref.nv)
+        nc, no, nv = ref.nc, ref.no, ref.nv
+        dim = (nc + no) * (no + nv)
+        backend = _resolve_backend(ref, self.backend, dim, self.use_davidson)
         keep = None
         if frozen is not None:
+            if backend not in ("dense", "df"):
+                raise ValueError("frozen core requires backend='dense' or 'df'")
             if remove:
                 raise ValueError("frozen core is a remove=False feature")
             f = 1 if frozen is True else max(int(frozen), 1)
-            nc, no, nv = ref.nc, ref.no, ref.nv
             if f > nc:
                 raise ValueError(f"frozen={f} exceeds nc={nc}")
             d1, d2 = nc * nv, nc * nv + nc * no
             keep = np.r_[f * nv: d1, d2 - (nc - f) * no: dim]
+        converged, cycles = True, None
+        if backend == "df":
+            from xtddft_tpu_torch.response.sigma_df import build_df_data, xsf_sigma_df
 
-        def make_op(data):
-            op_ = xsf_sigma_df(data, SA=self.SA, foo=foo, fglobal=fglobal,
-                               method=self.method, remove=remove)
-            return op_ if keep is None else _restrict_sigma_op(op_, keep)
+            def make_op(data):
+                op_ = xsf_sigma_df(data, SA=self.SA, foo=foo, fglobal=fglobal,
+                                   method=self.method, remove=remove)
+                return op_ if keep is None else _restrict_sigma_op(op_, keep)
 
-        e, vv, conv, op, label, info = _df_solve(lambda: build_df_data(ref), make_op, n)
-        v_full = op.to_blocked(vv)
+            e, vv, conv, op, _, info = _df_solve(lambda: build_df_data(ref), make_op, n)
+            v_full, converged, cycles = op.to_blocked(vv), bool(np.all(conv)), info["cycles"]
+        elif backend == "incore":
+            from xtddft_tpu_torch.response.sigma_xsf import xsf_sigma_operator
+
+            op = xsf_sigma_operator(ref, SA=self.SA, foo=foo, fglobal=fglobal,
+                                    method=self.method, remove=remove)
+            e, vv, conv, info = _incore_solve(op, n)
+            v_full, converged, cycles = op.to_blocked(vv), bool(np.all(conv)), info["cycles"]
+        else:
+            A, vects = dense.xsf_dense(ref, SA=self.SA, foo=foo, fglobal=fglobal,
+                                       method=self.method, remove=remove)
+            if keep is not None:
+                kt = torch.as_tensor(keep, device=A.device)
+                A = A[kt][:, kt]
+            e, v = _eigh(A)
+            n = min(n, e.shape[0])
+            e, v = e[:n], v[:, :n]
+            if keep is not None:
+                vf = np.zeros((dim, n))
+                vf[keep] = v
+                v = vf
+            if vects is not None:
+                d3 = nc * nv + nc * no + no * nv
+                v = np.concatenate([v[:d3], vects @ v[d3:]], axis=0)
+            v_full = v
         if ref.restricted_open and self.SA != 0:
             ds2 = None  # spin-adapted states: dS2 fixed by construction
         elif ref.restricted_open:
             ds2 = spin.xsf_delta_s2_roks(ref, v_full)
         else:
             ds2 = spin.xsf_delta_s2_uks(ref, v_full)
-        return ExcitationResult(e=e, v=v_full, ds2=ds2, converged=bool(np.all(conv)),
-                                solver=label, cycles=info["cycles"])
+        irreps = None
+        if self.symmetry:
+            from xtddft_tpu_torch.props.irreps import state_irreps
+
+            irreps, _ = state_irreps(ref, v_full, kind="spin_flip")
+        return ExcitationResult(e=e, v=v_full, ds2=ds2, converged=converged,
+                                irreps=irreps, solver=backend, cycles=cycles)

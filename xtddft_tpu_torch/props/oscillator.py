@@ -1,7 +1,8 @@
 """Oscillator and rotatory strengths (host numpy).
 
-Counterpart of the JAX package's `props/oscillator.py` for the
-spin-conserving blocked layout: X normalized X^T X = 1; rotatory strengths
+Counterpart of the JAX package's `props/oscillator.py`: the closed-shell
+TDA layout (scaled by sqrt(2) for pyscf's 1/2 normalization) and the
+spin-conserving blocked layout; X normalized X^T X = 1; rotatory strengths
 in 1e-40 cgs via `units.CGS2AU`.
 """
 
@@ -53,3 +54,22 @@ def spin_conserving_rot(ref: Reference, e: np.ndarray, v: np.ndarray) -> np.ndar
     t_m = 0.5 * _transition(ref, _ov_blocks(ref, _host(ref.env.rxp)), v)
     f = np.einsum("s,sx,sx->s", 1.0 / e, t_e, t_m)
     return f / units.CGS2AU
+
+
+def closed_shell_osc(ref: Reference, e: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Singlet TDA oscillator strengths; v is (nc*nv, nstates) (JAX
+    `props/oscillator.py:30`)."""
+    da = _dip_blocks(ref)[0]
+    td = np.einsum("xi,is->sx", da, v * np.sqrt(2.0))
+    return (2.0 / 3.0) * e * np.einsum("sx,sx->s", td, td)
+
+
+def closed_shell_rot(ref: Reference, e: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Velocity-gauge rotatory strengths of singlet TDA states (1e-40 cgs;
+    JAX `props/oscillator.py:38`)."""
+    de = _ov_blocks(ref, _host(ref.env.ipovlp))[0]
+    dm = _ov_blocks(ref, _host(ref.env.rxp))[0]
+    xy = v * np.sqrt(2.0)
+    t_e = -np.einsum("xi,is->sx", de, xy)
+    t_m = 0.5 * np.einsum("xi,is->sx", dm, xy)
+    return np.einsum("s,sx,sx->s", 1.0 / e, t_e, t_m) / units.CGS2AU

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from xtddft_tpu_torch.response.reference_state import Reference
 
@@ -19,6 +20,47 @@ def xtda_delta_s2(ref: Reference, v: np.ndarray) -> np.ndarray:
         np.einsum("ij,ij->i", cva, cva)
         + np.einsum("ij,ij->i", cvb, cvb)
         - 2.0 * np.einsum("ij,ij->i", cva, cvb)
+    )
+
+
+def utda_delta_s2(ref: Reference, v: np.ndarray) -> np.ndarray:
+    """General UKS formula with the alpha-beta overlap matrices, blocked
+    CV(a)|OV(a)|CO(b)|CV(b) eigenvectors (JAX `props/spin.py:25`)."""
+    nc, no, nv = ref.nc, ref.no, ref.nv
+    S = ref.env.S.detach().to("cpu", torch.float64).numpy()
+    oa, va = ref.orbo_a, ref.orbv_a
+    ob, vb = ref.orbo_b, ref.orbv_b
+    Sccba = ob.T @ S @ oa  # (nc, nc+no)
+    Sccab = oa.T @ S @ ob  # (nc+no, nc)
+    Svcab = va.T @ S @ ob  # (nv, nc)
+    Svcba = vb.T @ S @ oa  # (no+nv, nc+no)
+    Svvab = va.T @ S @ vb  # (nv, no+nv)
+    ns = v.shape[1]
+    d1 = nc * nv
+    d2 = (nc + no) * nv
+    d3 = d2 + nc * no
+    cva = v[:d1].T.reshape(ns, nc, nv)
+    ova = v[d1:d2].T.reshape(ns, no, nv)
+    cob = v[d2:d3].T.reshape(ns, nc, no)
+    cvb = v[d3:].T.reshape(ns, nc, nv)
+    e = np.einsum
+    return (
+        e("nia,nja,ki,jk->n", cva, cva, Sccba[:, :nc], Sccba.T[:nc, :])
+        + e("nia,nja,ki,jk->n", ova, ova, Sccba[:, nc:], Sccba.T[nc:, :])
+        + e("nia,nja,ki,jk->n", ova, cva, Sccba[:, nc:], Sccba.T[:nc, :])
+        + e("nia,nja,ki,jk->n", cva, ova, Sccba[:, :nc], Sccba.T[nc:, :])
+        - e("nia,nib,ak,kb->n", cva, cva, Svcab, Svcab.T)
+        - e("nia,nib,ak,kb->n", ova, ova, Svcab, Svcab.T)
+        + e("nia,nja,ki,jk->n", cvb, cvb, Sccab, Sccab.T)
+        + e("nia,nja,ki,jk->n", cob, cob, Sccab, Sccab.T)
+        - e("nia,nib,ak,kb->n", cob, cob, Svcba[:no, :], Svcba.T[:, :no])
+        - e("nia,nib,ak,kb->n", cvb, cvb, Svcba[no:, :], Svcba.T[:, no:])
+        - e("nia,nib,ak,kb->n", cob, cvb, Svcba[:no, :], Svcba.T[:, no:])
+        - e("nia,nib,ak,kb->n", cvb, cob, Svcba[no:, :], Svcba.T[:, :no])
+        - 2 * e("nia,njb,ji,ab->n", cva, cvb, Sccba[:, :nc], Svvab[:, no:])
+        - 2 * e("nia,njb,ji,ab->n", cva, cob, Sccba[:, :nc], Svvab[:, :no])
+        - 2 * e("nia,njb,ji,ab->n", ova, cvb, Sccba[:, nc:], Svvab[:, no:])
+        - 2 * e("nia,njb,ji,ab->n", ova, cob, Sccba[:, nc:], Svvab[:, :no])
     )
 
 

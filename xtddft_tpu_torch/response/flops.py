@@ -117,10 +117,19 @@ def grid_ao_flops(nz, nao, npts):
     return 2.0 * nz * npts * (nao * nao + 4 * nao)
 
 
-def grid_ao_bytes(nz, nao, npts, itemsize):
-    """K2 hermitian / K3 AO mode: the AO table read once, the (nz, 4, npts)
-    grid side and the (nz, nao, nao) matrices read or written once."""
-    return float(itemsize) * (4 * npts * nao + 4 * nz * npts + nz * nao * nao)
+def grid_ao_value_flops(nz, nao, npts):
+    """K3's value term on the AO table at its least: V = sum_g (dwv phi0)
+    phi0^T is symmetric, so per point F = dwv phi0 (nao) and one triangle
+    of F phi0^T, nao (nao + 1) / 2 multiply-adds."""
+    return 1.0 * nz * npts * (nao * (nao + 1) + nao)
+
+
+def grid_ao_bytes(nz, nao, npts, itemsize, ncomp=4, masked=False):
+    """K2 hermitian / K3 AO mode: the ncomp rows of the AO table read once,
+    the (nz, ncomp, npts) grid side and the (nz, nao, nao) matrices read or
+    written once, and K2's mask read once where it has one."""
+    return float(itemsize) * (ncomp * npts * nao + ncomp * nz * npts + nz * nao * nao
+                              + (npts if masked else 0))
 
 
 def scf_veff_flops(naux, nao, npts, nz=2, exchange=True, xc=True):

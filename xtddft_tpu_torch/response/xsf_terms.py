@@ -1,9 +1,10 @@
-"""XSF-TDA spin-adaptation (dA) terms over the fitted B tensor.
+"""XSF-TDA spin-adaptation (dA) terms over the fitted B tensor or the in-core ERIs.
 
-Counterpart of the JAX package's `response/xsf_terms.py` for dense B.  The
-blockwise dA couplings need small MO ERI tensors, each with at least two
-open-shell indices, built once per operator from B, and ~30 small
-contractions per sigma build.  All of it is plain torch (matrix products
+Counterpart of the JAX package's `response/xsf_terms.py` for dense B and
+exact ERIs.  The blockwise dA couplings need small MO ERI tensors, each
+with at least two open-shell indices, built once per operator from B
+(`delta_a_tensors_from_df`) or from the in-core ERIs
+(`delta_a_tensors_from_eri`), and ~30 small contractions per sigma build.  All of it is plain torch (matrix products
 and einsums); none of it is a hand-written kernel yet.
 """
 
@@ -50,6 +51,31 @@ def delta_a_tensors_from_df(B: torch.Tensor, nc: int, no: int, SA: int) -> dict:
         t["e_VOOC"] = _m(V, O, O, C)
         t["e_OOOC"] = _m(O, O, O, C)
         t["e_VOOO"] = _m(V, O, O, O)
+    return t
+
+
+def delta_a_tensors_from_eri(ref, SA: int) -> dict:
+    """The same MO tensors from the in-core ERIs, on the Env's device (JAX
+    `response/xsf_terms.py:16`)."""
+    from xtddft_tpu_torch.response.moeri import mo_eri
+
+    nc, no = ref.nc, ref.no
+    mo = ref.env.tensor(ref.mo_a)
+    C, O, V = mo[:, :nc], mo[:, nc:nc + no], mo[:, nc + no:]
+    eri = ref.env.eri
+    t = {
+        "e_OCCO": mo_eri(eri, O, C, C, O),
+        "e_VOOV": mo_eri(eri, V, O, O, V),
+    }
+    if SA > 1:
+        t["e_VOCC"] = mo_eri(eri, V, O, C, C)
+        t["e_VVOC"] = mo_eri(eri, V, V, O, C)
+        t["e_OCOV"] = mo_eri(eri, O, C, O, V)
+        t["e_OVOC"] = mo_eri(eri, O, V, O, C)
+    if SA > 2:
+        t["e_VOOC"] = mo_eri(eri, V, O, O, C)
+        t["e_OOOC"] = mo_eri(eri, O, O, O, C)
+        t["e_VOOO"] = mo_eri(eri, V, O, O, O)
     return t
 
 

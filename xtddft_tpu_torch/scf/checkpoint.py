@@ -51,8 +51,8 @@ def save_mf(mf: MeanField, path: str) -> None:
 def load_mf(path: str, df: bool | None = None,
             device: torch.device | str | None = None,
             dtype: torch.dtype | None = None) -> MeanField:
-    """df: override the Env's density-fitting mode (the port's J/K is DF
-    only, so a checkpoint of an in-core SCF is loaded with df=True)."""
+    """df: override the Env's J/K route (None: the checkpoint's own, in-core
+    or density fitted)."""
     z = np.load(path, allow_pickle=False)
     mol = Molecule(
         symbols=tuple(str(s) for s in z["symbols"]),

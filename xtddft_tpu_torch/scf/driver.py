@@ -1,10 +1,11 @@
-"""Self-consistent field: RHF/UHF/ROHF and RKS/UKS/ROKS over density fitting.
+"""Self-consistent field: RHF/UHF/ROHF and RKS/UKS/ROKS, in-core or density fitted.
 
 Counterpart of the JAX package's `scf/driver.py` with its f64 host engine.
 The iteration stays on the host in f64 numpy (eigh, DIIS, the Roothaan
 Fock: O(nao^2) a cycle); each cycle's Fock build runs on the Env's device.
 The two density matrices go up, the Coulomb and exchange matrices come
-from one launch of K1 `df_exchange` in AO mode (`Env.get_jk`), the density
+from the Env's J/K (`Env.get_jk`: one launch of K1 `df_exchange` in AO mode
+over density fitting, or two matrix products with the in-core ERIs), the density
 on the grid from K2 `grid_rho1` in its hermitian mode, the functional and
 its derivatives from ``torch.func``, the XC potential matrices from K3
 `grid_back` on the AO table, and the two veff matrices come back.
@@ -12,8 +13,7 @@ ROHF/ROKS orbitals are canonicalized with the Roothaan effective Fock (the
 pyscf.scf.rohf convention, which the spin-adapted dA terms assume).
 
 Not ported: the JAX package's mixed-precision device engine
-(``engine="device"``, `scf/jk_device.py`), x2c, the in-core ERI tensor and
-meta-GGA functionals; each raises ``NotImplementedError`` naming its item.
+(``engine="device"``, `scf/jk_device.py`), x2c and meta-GGA functionals; each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -113,7 +113,8 @@ class SCF:
     reuses one, with its grid and fitted tensors.  ``profile = True``
     (before ``kernel``) synchronizes the device at each stage of a Fock
     build and sums the seconds per stage into ``stage_seconds``:
-    ``upload``, ``jk`` (K1 and the Coulomb GEMM), ``rho`` (K2), ``xc``
+    ``upload``, ``jk`` (K1 and the Coulomb GEMM, or the in-core products),
+    ``rho`` (K2), ``xc``
     (the functional and K3), ``download`` and ``host`` (eigh, DIIS and the
     rest of the loop).  ``cycles`` counts the Fock builds of the
     last ``kernel``."""
@@ -161,11 +162,7 @@ class SCF:
                 from xtddft_tpu_torch.ints import build_layout
 
                 df = build_layout(mol).nao > 120
-            if not df:
-                raise NotImplementedError(
-                    "in-core ERIs: the 4-center tensor is not ported (ROADMAP "
-                    "queue 1, item 5); pass df=True for density fitting")
-            env = Env(mol, grid_level=grid_level, df=True, aux_beta=aux_beta,
+            env = Env(mol, grid_level=grid_level, df=df, aux_beta=aux_beta,
                       aux_mode=aux_mode, device=device)
         self.env = env
         self.conv_tol = 1e-11

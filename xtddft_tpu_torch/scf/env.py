@@ -2,12 +2,20 @@
 
 One `Env` per (molecule, basis, grid level, device, dtype).  Host integrals
 (numpy, native engine) are computed lazily and cached; the tensors the
-response consumes live on ``device`` in ``dtype``.  The DF subset of the
-JAX package's `scf/env.py`: the metric dressing ``isqrt @ j3c`` runs as a
-torch matmul on the device, the DF exchange on the hand-written kernel K1
-`df_exchange` in AO mode (the AO basis as both its occupied and its virtual
-range, density matrices as its trial vectors).  x2c and the in-core ERI
-tensors are not ported yet.
+response consumes live on ``device`` in ``dtype``.  Counterpart of the JAX
+package's `scf/env.py` with its two J/K routes:
+
+- in-core (``df=False``, the default as in JAX): the 4-center tensor from
+  the native engine, J and K each one matrix product with it on the device
+  (K through an exchange-ordered copy made once, so that no build permutes
+  nao^4 elements);
+- density fitting (``df=True``): the metric dressing ``isqrt @ j3c`` runs as
+  a torch matmul on the device, the DF exchange on the hand-written kernel
+  K1 `df_exchange` in AO mode (the AO basis as both its occupied and its
+  virtual range, density matrices as its trial vectors).
+
+The fitted tensors are lazy on either route, so a DF response can run on an
+in-core Env.  x2c is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,17 +39,19 @@ from xtddft_tpu_torch.ints import (
     nuclear_attraction,
     overlap,
 )
+from xtddft_tpu_torch.ints.two_electron import eri_full
 
 
 @dataclasses.dataclass
 class Env:
-    """df=True selects density fitting for J/K (the only J/K the port has):
-    a metric-dressed B[P, mu, nu] (naux, nao, nao) is built once from the
-    native 3c/2c integrals and the eigendecomposed Coulomb metric."""
+    """df=True selects density fitting for J/K: a metric-dressed
+    B[P, mu, nu] (naux, nao, nao) is built once from the native 3c/2c
+    integrals and the eigendecomposed Coulomb metric.  df=False keeps the
+    nao^4 tensor (pq|rs) on the device (the small-molecule route)."""
 
     mol: Molecule
     grid_level: int = 3
-    df: bool = True
+    df: bool = False
     aux_beta: float = 2.2
     aux_mode: str = "full"
     x2c: bool = False
@@ -49,10 +59,6 @@ class Env:
     dtype: torch.dtype | None = None
 
     def __post_init__(self):
-        if not self.df:
-            raise NotImplementedError(
-                "in-core ERIs: not ported yet; the port's J/K is density "
-                "fitted (pass df=True)")
         if self.x2c:
             raise NotImplementedError(
                 "x2c Hamiltonian: not ported yet (ROADMAP queue 1, item 12)")
@@ -63,6 +69,8 @@ class Env:
         self._df_j3c_cache: dict[float, np.ndarray] = {}
         self._df_meig_cache: dict[float, tuple] = {}
         self._df_isqrt_cache: dict[float, np.ndarray] = {}
+        self._eri_cache: dict[float, torch.Tensor] = {}
+        self._eri_k_cache: dict[float, torch.Tensor] = {}
 
     def tensor(self, a) -> torch.Tensor:
         """Host array -> tensor on this Env's device and dtype."""
@@ -100,6 +108,44 @@ class Env:
     @cached_property
     def rxp(self):
         return self.tensor(angular_momentum(self.layout))
+
+    # -- in-core ERIs -------------------------------------------------------
+    @property
+    def eri(self) -> torch.Tensor:
+        """(nao, nao, nao, nao) ERIs (pq|rs), chemists' notation."""
+        return self.eri_omega(0.0)
+
+    def eri_omega(self, omega: float) -> torch.Tensor:
+        """ERIs of erf(omega r12)/r12 (omega 0: the Coulomb tensor)."""
+        omega = float(omega or 0.0)
+        if omega not in self._eri_cache:
+            self._eri_cache[omega] = self.tensor(eri_full(self.layout, omega=omega or None))
+        return self._eri_cache[omega]
+
+    def eri_k(self, omega: float = 0.0) -> torch.Tensor:
+        """Exchange-ordered copy X[p, q, r, s] = (pr|sq) as an (nao^2, nao^2)
+        matrix, made once: K_pq = sum_rs (pr|sq) D_rs is then one product
+        X @ vec(D), where an einsum over the ERI tensor would permute all
+        nao^4 elements into a fresh buffer on every call."""
+        omega = float(omega or 0.0)
+        if omega not in self._eri_k_cache:
+            n = self.nao
+            self._eri_k_cache[omega] = (
+                self.eri_omega(omega).permute(0, 3, 1, 2).reshape(n * n, n * n).contiguous())
+        return self._eri_k_cache[omega]
+
+    def incore_j(self, dms: torch.Tensor) -> torch.Tensor:
+        """J[x]_pq = sum_rs (pq|rs) D[x]_sr for a stack (nz, nao, nao), any
+        symmetry of D (JAX ``einsum("pqrs,xsr->xpq")``)."""
+        n = self.nao
+        return (self.eri.reshape(n * n, n * n) @ dms.transpose(1, 2).reshape(-1, n * n).T
+                ).T.reshape(dms.shape)
+
+    def incore_k(self, dms: torch.Tensor, omega: float = 0.0) -> torch.Tensor:
+        """K[x]_pq = sum_rs (pr|sq) D[x]_rs for a stack (nz, nao, nao), any
+        symmetry of D (JAX ``einsum("prsq,xrs->xpq")``)."""
+        n = self.nao
+        return (self.eri_k(omega) @ dms.reshape(-1, n * n).T).T.reshape(dms.shape)
 
     # -- density fitting ----------------------------------------------------
     @cached_property
@@ -158,22 +204,25 @@ class Env:
         """Host numpy copy of :meth:`df_B`."""
         return self.df_B(omega).cpu().numpy()
 
-    # -- DF J/K builds ------------------------------------------------------
+    # -- J/K builds (in-core or DF, selected by self.df) ---------------------
     def _coulomb(self, t: torch.Tensor) -> torch.Tensor:
         """J = sum_P B[P] t_P, the Coulomb GEMM (a torch matmul)."""
         B = self.df_B()
         return (t @ B.reshape(B.shape[0], -1)).reshape(B.shape[1:])
 
     def get_j(self, dm: torch.Tensor) -> torch.Tensor:
-        """J[dm] = sum_P B[P] t_P with t_P = sum_ls B[P,l,s] dm[s,l]: two
-        matrix-vector products with B (JAX `scf/env.py:238` `_df_j`)."""
+        """J[dm]: in-core sum_rs (pq|rs) dm_sr; DF sum_P B[P] t_P with t_P =
+        sum_ls B[P,l,s] dm[s,l], two matrix-vector products with B (JAX
+        `scf/env.py:238` `_df_j`)."""
+        if not self.df:
+            return self.incore_j(dm[None])[0]
         B = self.df_B()
         return self._coulomb(B.reshape(B.shape[0], -1) @ dm.T.reshape(-1))
 
     def get_k(self, dm: torch.Tensor, omega: float | None = None) -> torch.Tensor:
-        """pyscf convention: K_pq = sum_{rs} (pr|sq) dm_rs = sum_P (B[P] dm
+        """pyscf convention: K_pq = sum_{rs} (pr|sq) dm_rs; DF: sum_P (B[P] dm
         B[P])_pq (JAX `scf/env.py:244` `_df_k`), on K1; ``omega``: the
-        long-range erf kernel's own fitted tensor."""
+        long-range erf kernel's own tensor."""
         return self.get_jk(dm[None], omega, with_j=False)[1][0]
 
     def get_jk(self, dms: torch.Tensor, omega: float | None = None, with_j: bool = True):
@@ -182,9 +231,14 @@ class Env:
         is `_df_j`'s t, its exchange is `_df_k`, because B is symmetric in
         its AO pair.  ``with_j`` needs the Coulomb tensor (omega 0).  K1
         sums in its fixed order here: the SCF's 1e-11 Ha energy test sits at
-        the rounding of these sums, and a Fock build must repeat bitwise."""
+        the rounding of these sums, and a Fock build must repeat bitwise.
+        In-core: one product with the ERI matrix for J and one with its
+        exchange-ordered copy for every K."""
         omega = float(omega or 0.0)
         if with_j and omega:
             raise ValueError("get_jk: J is the Coulomb (omega = 0) tensor's")
+        if not self.df:
+            J = self.incore_j(dms.sum(0)[None])[0] if with_j else None
+            return J, self.incore_k(dms, omega)
         t, K = df_exchange(self.df_B(omega), dms, 0, 0, with_t=with_j)
         return (self._coulomb(t.sum(0)) if with_j else None), K

@@ -76,8 +76,12 @@ def davidson(matvec, hdiag, nroots: int = 5, init_guess=None,
         Vs = V[:ns]
         X = X - (X @ Vs.T) @ Vs
         X = X - (X @ Vs.T) @ Vs
-        eps = 1e-10 * torch.max(torch.sum(X * X, dim=1)) + 1e-30
         for _ in range(2):  # CholeskyQR2
+            # the shift scales with each pass's own rows: after the first
+            # pass they are of unit norm, and rows left dependent (a space
+            # smaller than the block, or exhausted) must not break the
+            # second factorization; the pencil drops them (``ritz``)
+            eps = 1e-10 * torch.max(torch.sum(X * X, dim=1)) + 1e-30
             L = torch.linalg.cholesky(X @ X.T + eps * eye)
             X = torch.linalg.solve_triangular(L, X, upper=False)
         V[ns:ns + nb] = X

@@ -12,7 +12,8 @@ including all gamma cross terms.  Counterpart of the JAX package's
 matrix (`_contract_vmat`) are the hand-written kernels K2 (hermitian mode)
 and K3 on the AO table when the tensors are on the card, their plain torch
 versions on the CPU; on the card both sum in their fixed order, so that an
-SCF's Fock build repeats bitwise.
+SCF's Fock build repeats bitwise.  The in-core response's XC terms
+(`fxc_v1mat`, `sf_v1mat`) run on the same two kernels in their atomic order.
 
 Density convention: ``rho = (ra, rb, ga, gb)`` with ra/rb shape (ng,) and
 ga/gb shape (3, ng).
@@ -50,18 +51,32 @@ def exc_density_fn(spec: XCSpec):
     return e
 
 
-def cache_rho(ao, dm):
+def symmetrize(dm):
+    """(D + D^T) / 2 over the last two axes."""
+    return 0.5 * (dm + dm.transpose(-1, -2))
+
+
+def cache_rho(ao, dm, hermi: bool = True, mask=None, ncomp: int = 4, fixed_order: bool = True):
     """Density and gradient on the grid from AO values: K2 `grid_rho1` in
     its hermitian mode, one launch for a whole stack of matrices.
 
     ao: (4, ng, nao) [value, ddx, ddy, ddz]; dm: (nao, nao) or (nz, nao,
-    nao), symmetric.  Returns (rho (ng,), grho (3, ng)), with a leading nz
-    axis for a stack.
+    nao).  Returns (rho (ng,), grho (3, ng)), with a leading nz axis for a
+    stack; with ``ncomp=1`` grho is None.  ``hermi=False`` (transition
+    matrices, JAX `xc/interface.py:53`): with D_s = (D + D^T)/2,
+    rho(D) = rho(D_s) and grad phi D phi + phi D grad phi = 2 grad phi D_s
+    phi, which is what the hermitian mode returns for D_s, so D_s goes to
+    the kernel.  ``mask`` (ng,) 0/1 zeroes the rows where it is 0.
+    ``fixed_order`` (the SCF's density) sums each point in a fixed order;
+    the in-core response passes False (the atomic order, as the DF sigma).
     """
-    r = grid_rho1(ao, dm.reshape(-1, *dm.shape[-2:]), 0, 0, hermi=True, fixed_order=True)
+    d = dm.reshape(-1, *dm.shape[-2:])
+    if not hermi:
+        d = symmetrize(d)
+    r = grid_rho1(ao, d, 0, 0, mask, ncomp=ncomp, hermi=True, fixed_order=fixed_order)
     if dm.dim() == 2:
         r = r[0]
-    return r[..., 0, :], r[..., 1:4, :]
+    return r[..., 0, :], (r[..., 1:4, :] if ncomp == 4 else None)
 
 
 def _sanitize(weights, rho):
@@ -105,16 +120,17 @@ def _exc_and_vxc(spec: XCSpec, weights, rho):
     return exc, dv
 
 
-def _contract_vmat(ao, wv, wvec):
+def _contract_vmat(ao, wv, wvec, fixed_order: bool = True):
     """V_mu_nu = sum_g [wv phi phi + wvec . (grad(phi) phi + phi grad(phi))]:
     K3 `grid_back` with the AO table on both sides, one launch for a stack.
 
     wv: (ng,) or (nz, ng); wvec: (3, ng) or (nz, 3, ng).  Returns (nao,
-    nao), with a leading nz axis for a stack.
+    nao), with a leading nz axis for a stack.  ``fixed_order``: as
+    `cache_rho`'s.
     """
     dwv = wv.reshape(-1, wv.shape[-1])
     out = torch.zeros((dwv.shape[0], ao.shape[2], ao.shape[2]), dtype=ao.dtype, device=ao.device)
-    grid_back(dwv, wvec.reshape(-1, 3, wvec.shape[-1]), ao, 0, 0, out, fixed_order=True)
+    grid_back(dwv, wvec.reshape(-1, 3, wvec.shape[-1]), ao, 0, 0, out, fixed_order=fixed_order)
     return out[0] if wv.dim() == 1 else out
 
 
@@ -125,6 +141,51 @@ def vxc_matrices(spec: XCSpec, ao, weights, rho):
     exc, (wva, wvb, wga, wgb) = _exc_and_vxc(spec, weights, rho)
     V = _contract_vmat(ao, torch.stack([wva, wvb]), torch.stack([wga, wgb]))
     return exc, V[0], V[1]
+
+
+def fxc_response(spec: XCSpec, weights, rho0):
+    """(respond, mask): respond(drho) -> the weighted perturbed potentials
+    (dwva, dwvb, dwga, dwgb) of one transition density (dra, drb, dga, dgb)
+    by a jvp of the potential (JAX `xc/interface.py:138`); drho must be zero
+    where ``mask`` (ng,) is false, as K2's masked rows are."""
+    w, rho_s, mask = _sanitize(weights, rho0)
+    jvp = make_fxc_jvp(spec)
+    return (lambda drho: jvp(w, rho_s, drho)), mask
+
+
+# (sets x grid points) per fxc jvp call of `fxc_v1mat`, as the DF sigma's
+# `JVP_POINTS`
+V1_JVP_POINTS = 1 << 20
+
+
+def fxc_v1mat(spec: XCSpec, ao, weights, rho0, dm1s, hermi: bool = False):
+    """Perturbed XC matrices for a batch of density matrices (JAX
+    `xc/interface.py:168`): dm1s (nset, 2, nao, nao) alpha/beta, any
+    symmetry with ``hermi=False``; returns (nset, 2, nao, nao).  One K2
+    launch (hermitian mode on the symmetrized stack, masked) gives every
+    transition density, the jvp runs over groups of sets, and one K3 launch
+    on the AO table gives every matrix.  Both kernels sum in their atomic
+    order, as the DF sigma's do: at CH2O+/cc-pVDZ's in-core stack the fixed
+    order costs K2 8% and K3 37% (`chip_smoke.py` phase 2)."""
+    nset, nao = dm1s.shape[0], dm1s.shape[-1]
+    respond, mask = fxc_response(spec, weights, rho0)
+    r1, g1 = cache_rho(ao, dm1s.reshape(2 * nset, nao, nao), hermi=hermi,
+                       mask=mask.to(ao.dtype), fixed_order=False)
+    r1 = r1.reshape(nset, 2, -1)
+    g1 = g1.reshape(nset, 2, 3, -1)
+    ng = r1.shape[-1]
+    dwv = torch.empty_like(r1)
+    dwg = torch.empty_like(g1)
+    group = max(1, V1_JVP_POINTS // ng)
+    for x0 in range(0, nset, group):
+        x = slice(x0, x0 + group)
+        dva, dvb, dga, dgb = torch.func.vmap(respond)(
+            (r1[x, 0], r1[x, 1], g1[x, 0], g1[x, 1]))
+        dwv[x] = torch.stack([dva, dvb], dim=1)
+        dwg[x] = torch.stack([dga, dgb], dim=1)
+    V = _contract_vmat(ao, dwv.reshape(2 * nset, ng), dwg.reshape(2 * nset, 3, ng),
+                       fixed_order=False)
+    return V.reshape(nset, 2, nao, nao)
 
 
 def make_fxc_jvp(spec: XCSpec):
@@ -167,3 +228,15 @@ def sf_kernel_alda0(spec: XCSpec, weights, rho0):
 
     va, vb = torch.func.grad(total, argnums=(0, 1))(ra_s, rb_s)
     return (va - vb) / (ra - rb + 1e-9)
+
+
+def sf_v1mat(ao, fxc_sf_w, dm1s):
+    """SF response matrices v1 = sum_g fxc_sf_w rho1 phi phi (JAX
+    `xc/interface.py:242`) for alpha->beta transition matrices dm1s (nset,
+    nao, nao): the value row of K2 (hermitian mode on the symmetrized
+    stack) and K3's value term on the AO table, one launch each, in their
+    atomic order (as `fxc_v1mat`)."""
+    rho1, _ = cache_rho(ao, dm1s, hermi=False, ncomp=1, fixed_order=False)
+    out = torch.zeros_like(dm1s)
+    grid_back(fxc_sf_w * rho1, None, ao, 0, 0, out)
+    return out

@@ -14,8 +14,13 @@ The per-point Hessian in the 4 spin variables comes from torch.func autodiff
 of the same energy density used everywhere else (`xc/interface`).  Grid
 points are independent, so the Hessian of the summed energy density is
 block diagonal and its column b is one jvp of the gradient along the unit
-direction b on every point at once: four jvps per batch of (t-samples x
-points), where the JAX code vmaps `jax.hessian` over them.
+direction b on every point at once: the four jvps of a batch of (t-samples
+x points) run as one ``vmap`` over the four directions (the primal pass
+once), where the JAX code vmaps `jax.hessian` over the points.
+
+The dense coupling tensor (`sf_mcol_tensor`) is one product over grid
+chunks; the matrix-free response (`sf_v1mat_mcol`) runs on K2 (hermitian
+mode on the symmetrized transition matrices) and K3 on the AO table.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xtddft_tpu_torch.kernels.grid_back import grid_back
+from xtddft_tpu_torch.response.fxc_tensor import DENSE_CHUNK, mo_pair_features
 from xtddft_tpu_torch.xc import functionals as fl
-from xtddft_tpu_torch.xc.interface import MASK_RHO
+from xtddft_tpu_torch.xc.interface import MASK_RHO, cache_rho
 from xtddft_tpu_torch.xc.registry import XCSpec
 
 # Grid points per Hessian batch (times nt samples): 187,644 points go in 6
@@ -95,11 +102,43 @@ def sf_kernel_mcol(spec: XCSpec, weights, rho0, nt: int = 20):
         sv = (x[None, :, None] * sv0[:, None, g]).reshape(4, -1)
         n_b = n_s[g].repeat(nt)
         gn_b = gn_s[:, g].repeat(1, nt)
-        for b in range(4):
-            tangent = torch.zeros_like(sv)
-            tangent[b] = 1.0
-            _, col = torch.func.jvp(lambda s: grad_sv(s, n_b, gn_b), (sv,), (tangent,))
-            H[g, :, b] = torch.einsum("t,atg->ga", wt, col.reshape(4, nt, npts))
+        # the four unit directions as one batch of tangents: the primal pass
+        # runs once, not once per column
+        tangents = torch.eye(4, dtype=dt, device=dev)[:, :, None].expand(4, 4, sv.shape[1])
+        cols = torch.func.vmap(
+            lambda t: torch.func.jvp(lambda s: grad_sv(s, n_b, gn_b), (sv,), (t,))[1])(tangents)
+        H[g] = torch.einsum("t,batg->gab", wt, cols.reshape(4, 4, nt, npts))
     # SF-TDA kernel = f_xx + f_yy = 2 * transverse second derivative; this
     # is what makes the LDA limit equal (vxc_a-vxc_b)/(rho_a-rho_b).
     return 2.0 * H * w[:, None, None]
+
+
+def sf_mcol_tensor(fxcH_w, ao, orb_o, orb_v) -> torch.Tensor:
+    """(ia|f_mc|jb) coupling tensor (no, nv, no, nv) for the dense SF
+    builders (JAX `xc/mcol.py:139`): fxcH_w (ng, 4, 4) weight-included,
+    ao (4, ng, nao), orb_o/orb_v tensors on ao's device.  Over chunks of
+    points: R (4, gc, nov), G_d = sum_c R_c fxcH_cd, then out += sum_d
+    G_d^T R_d, one matrix product of K = 4 gc."""
+    no, nv = orb_o.shape[1], orb_v.shape[1]
+    out = torch.zeros((no * nv, no * nv), dtype=ao.dtype, device=ao.device)
+    for g0 in range(0, ao.shape[1], DENSE_CHUNK):
+        g = slice(g0, g0 + DENSE_CHUNK)
+        R = mo_pair_features(ao[:, g], orb_o, orb_v)
+        G = torch.einsum("cgp,gcd->dgp", R, fxcH_w[g])
+        out.addmm_(G.reshape(-1, no * nv).T, R.reshape(-1, no * nv))
+    return out.reshape(no, nv, no, nv)
+
+
+def sf_v1mat_mcol(ao, fxcH_w, dm1s) -> torch.Tensor:
+    """Matrix-free SF response with the multicollinear kernel (JAX
+    `xc/mcol.py:160`): dm1s (nset, nao, nao) alpha->beta transition
+    matrices (non-hermitian); returns (nset, nao, nao).  rho1's four rows
+    from K2 on the symmetrized stack, the per-point kernel, then K3 on the
+    AO table gives v + vg + vg^T, the symmetrized gradient part of the JAX
+    code; both kernels in their atomic order (as `xc/interface.fxc_v1mat`)."""
+    r, g = cache_rho(ao, dm1s, hermi=False, fixed_order=False)
+    rho1 = torch.cat([r[:, None], g], dim=1)  # (nset, 4, ng)
+    wv = torch.einsum("gab,xbg->xag", fxcH_w, rho1)
+    out = torch.zeros_like(dm1s)
+    grid_back(wv[:, 0].contiguous(), wv[:, 1:4].contiguous(), ao, 0, 0, out)
+    return out
