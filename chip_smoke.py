@@ -83,7 +83,27 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    singlet and triplet and ``UTDA``, whose roots must be the lowest ten of
    theirs.  Each leg prints its ERI and grid build seconds, its SCF cycles
    and stage seconds, each response's route and seconds, and the kernels'
-   launches; K2 and K3 must launch in every leg.
+   launches; K2 and K3 must launch in every leg;
+10. the functionals at TTM's full width (182 AO, grid 1, DF, f64) on phase
+   3's Env: ``ROKS(ttm_vacuum, xc="tpssh")`` and ``xc="camb3lyp"`` (its
+   long range on the erf-attenuated fit at omega = 0.33) from the orbitals
+   of ``tests/data/ttm_ckpt.npz``, then ``XTDA(nstates=10)`` and
+   ``XSFTDA(SA=0, nstates=10)`` (method 1 for TPSSh, 0 for CAM-B3LYP),
+   each gated against ``tests/data/golden_ttm_<xc>.json`` (the JAX
+   package's own runs of the same calls: SCF energy within 1e-6 Ha and
+   occupied orbital energies within 1e-5 Ha, roots within 1e-4 eV, flip
+   <dS^2> within 1e-3; the JAX package could not solve TPSSh's
+   multicollinear flip at this size on its CPU host, so that leg is
+   gated on convergence and launches alone), with cycles, seconds per cycle by stage, solve
+   seconds and the launches of every leg; K2's tau row and K3's tau term
+   (TPSSh) and K1's exchange-only long-range pass (CAM-B3LYP) must launch
+   in every leg; the multicollinear kernel at 187,644 points is timed on
+   its own.  Phase 2 holds the same tau modes against their plain
+   versions at the TTM shapes (the X-TDA span, the flip-down block's five
+   components, the SCF's AO modes) and on the in-core sigma's CH2O+ stack,
+   f64 to 1e-12 and f32 to 1e-5, with ``library_ms`` the single einsum of
+   the tau row alone (K2) and over the per-point weights with W_yy +=
+   dwt / 2 (K3).  Phase 10 runs after phase 7.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -240,7 +260,8 @@ FLIP_SHAPES = (
 )
 
 
-def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=None, twin=None):
+def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=None, twin=None,
+           library_of=None):
     """Hold kern() against plain() (relative to max |plain|); time both
     and add the bound when ``timed``.  ``library``: one PyTorch call that
     computes the same function (a single multi-operand einsum), where there
@@ -251,7 +272,8 @@ def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=Non
     in its other summation order, held against plain() too; the fixed-order
     one of the two is launched twice and must repeat bitwise; ``twin_ms`` is
     its time and ``fixed_order_cost`` the fixed order's time over the atomic
-    order's, less one."""
+    order's, less one.  ``library_of``: the part of plain()'s output that
+    ``library`` computes (K2's tau row alone), where it is not all of it."""
     got = kern()
     _sync()
     want = plain()
@@ -267,7 +289,8 @@ def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=Non
         del fixed, again
     del got, other
     if library is not None:
-        rec["library_rel_err"] = rel_err(library(), want)[1]
+        rec["library_rel_err"] = rel_err(library(), want if library_of is None
+                                         else library_of(want))[1]
     del want
     if timed:
         from xtddft_tpu_torch.response.flops import bound_ms
@@ -293,16 +316,41 @@ def _check(checks, rec, kern, plain, timed, flops=None, nbytes=None, library=Non
     checks.append(rec)
 
 
-def _k3_weights(dwv, dwg):
-    """K3's per-point 4x4 weights W[x, c, d, g]: W00 = dwv, W0y = Wy0 = dwg_y,
-    so that one einsum ``"cgo,xcdg,dgv->xov"`` over the tables computes K3;
-    built outside the timed call."""
+def _k3_weights(dwv, dwg, dwt=None):
+    """K3's per-point 4x4 weights W[x, c, d, g]: W00 = dwv, W0y = Wy0 = dwg_y
+    (and Wyy = dwt / 2 with the tau term), so that one einsum
+    ``"cgo,xcdg,dgv->xov"`` over the tables computes K3; built outside the
+    timed call."""
     nz, pts = dwv.shape
     W = torch.zeros((nz, 4, 4, pts), dtype=dwv.dtype, device=dwv.device)
     W[:, 0, 0] = dwv
     W[:, 0, 1:] = dwg
     W[:, 1:, 0] = dwg
+    if dwt is not None:
+        for y in (1, 2, 3):
+            W[:, y, y] = 0.5 * dwt
     return W
+
+
+def _k2_selection(dtype):
+    """M[c, d, e] with rho1[x, c, g] = sum M[c, d, e] po_d[g, o] z[x, o, v]
+    pv_e[g, v]: the value row (d = e = 0) and the gradient rows (po_y pv_0 +
+    po_0 pv_y), so that one einsum ``"cde,dgo,xov,egv->xcg"`` computes K2's
+    four rows; built outside the timed call."""
+    M = torch.zeros((4, 4, 4), dtype=dtype, device="cuda")
+    M[0, 0, 0] = 1.0
+    for y in (1, 2, 3):
+        M[y, y, 0] = M[y, 0, y] = 1.0
+    return M
+
+
+def _tau_row(a, z, b, mask=None):
+    """K2's tau row alone as one einsum, 1/2 sum_y sum_ov z a_y b_y (times
+    the mask): a (3, g, nocc) and b (3, g, nvir) the gradient rows of the
+    tables."""
+    if mask is None:
+        return 0.5 * torch.einsum("xov,ygv,ygo->xg", z, b, a)
+    return 0.5 * torch.einsum("xov,ygv,ygo,g->xg", z, b, a, mask)
 
 
 def phase2() -> dict:
@@ -356,6 +404,7 @@ def phase2() -> dict:
                                           k1.df_exchange_plain(B, z, 0, no)]),
                        timed, fl.df_exchange_flops(naux, nz, no, nv),
                        fl.df_exchange_bytes(naux, nz, no, nv, isz))
+                M = _k2_selection(dtype)
                 for pts, ph in ((gc, phi), (span, phi_span)):
                     mk = mask_span[:pts]
                     _check(checks, rec(k2.NAME, gc=pts),
@@ -363,6 +412,10 @@ def phase2() -> dict:
                            lambda: k2.grid_rho1_plain(ph, z, 0, no, mk),
                            timed, fl.grid_rho1_flops(nz, no, nv, pts),
                            fl.grid_rho1_bytes(nz, no, nv, pts, isz),
+                           library=(lambda: torch.einsum("cde,dgo,xov,egv,g->xcg", M,
+                                                         ph[:, :, :no], z,
+                                                         ph[:, :, no:no + nv], mk))
+                           if timed else None,
                            twin=(lambda: k2.grid_rho1(ph, z, 0, no, mk, fixed_order=True))
                            if timed else None)
                 one_chunk = (gc, phi, dwv[:, :gc].contiguous(), dwg[..., :gc].contiguous())
@@ -380,6 +433,35 @@ def phase2() -> dict:
                                                       fixed_order=True).clone())
                            if timed else None)
                     del W
+                if label == "ttm" and timed:
+                    # the meta-GGA modes on the jvp group's span, as the
+                    # TPSSh X-TDA sigma launches them: K2 with its tau row
+                    # (library: the tau row alone), K3 with its tau term
+                    dwt = torch.randn((nz, span), generator=g, device="cuda", dtype=dtype)
+                    pa, pb = phi_span[1:4, :, :no], phi_span[1:4, :, no:no + nv]
+                    _check(checks, rec(k2.NAME, gc=span, mode="tau", rtol=AO_RTOL[dname]),
+                           lambda: k2.grid_rho1(phi_span, z, 0, no, mask_span, ncomp=5),
+                           lambda: k2.grid_rho1_plain(phi_span, z, 0, no, mask_span, ncomp=5),
+                           True, fl.grid_rho1_flops(nz, no, nv, span, 5),
+                           fl.grid_rho1_bytes(nz, no, nv, span, isz, 5),
+                           library=lambda: _tau_row(pa, z, pb, mask_span),
+                           library_of=lambda w: w[:, 4],
+                           twin=lambda: k2.grid_rho1(phi_span, z, 0, no, mask_span, ncomp=5,
+                                                     fixed_order=True))
+                    W = _k3_weights(dwv, dwg, dwt)
+                    _check(checks, rec(k3.NAME, gc=span, mode="tau", rtol=AO_RTOL[dname]),
+                           lambda: k3.grid_back(dwv, dwg, phi_span, 0, no, out.zero_(),
+                                                dwt=dwt).clone(),
+                           lambda: k3.grid_back_plain(dwv, dwg, phi_span, 0, no, out.zero_(),
+                                                      dwt=dwt).clone(),
+                           True, fl.grid_back_flops(nz, no, nv, span, 5),
+                           fl.grid_back_bytes(nz, no, nv, span, isz, 5),
+                           library=lambda: torch.einsum("cgo,xcdg,dgv->xov",
+                                                        phi_span[:, :, :no], W,
+                                                        phi_span[:, :, no:no + nv]),
+                           twin=lambda: k3.grid_back(dwv, dwg, phi_span, 0, no, out.zero_(),
+                                                     fixed_order=True, dwt=dwt).clone())
+                    del W, dwt, pa, pb
             del B, phi_all, phi, phi_span, mask_span
             torch.cuda.empty_cache()
         for label, nz, naux, nmo, n_o, v0, n_v, npts, two in FLIP_SHAPES:
@@ -418,12 +500,14 @@ def phase2() -> dict:
             pv = phi if phi_v is None else phi_v
             # the value-only modes are one three-operand einsum each; K3's
             # four-component mode one over its per-point weights
-            W = _k3_weights(dwv, dwg)
+            W, M4 = _k3_weights(dwv, dwg), _k2_selection(dtype)
             libs = {1: (lambda: torch.einsum("xov,gv,go->xg", z, pv[0][:, v],
                                              phi[0][:, o])[:, None],
                         lambda: torch.einsum("xg,go,gv->xov", dwv, phi[0][:, o], pv[0][:, v])),
-                    4: (None, lambda: torch.einsum("cgo,xcdg,dgv->xov", phi[:, :, o], W,
-                                                   pv[:, :, v]))}
+                    4: (lambda: torch.einsum("cde,dgo,xov,egv->xcg", M4, phi[:, :, o], z,
+                                             pv[:, :, v]),
+                        lambda: torch.einsum("cgo,xcdg,dgv->xov", phi[:, :, o], W,
+                                             pv[:, :, v]))}
             for ncomp, mode in ((1, "value_only"), (4, "four_component")):
                 dg = dwg if ncomp == 4 else None
                 lib2, lib3 = libs[ncomp]
@@ -441,7 +525,31 @@ def phase2() -> dict:
                                                   phi_v=phi_v).clone(),
                        True, fl.grid_back_flops(nz, n_o, n_v, npts, ncomp),
                        fl.grid_back_bytes(nz, n_o, n_v, npts, isz, ncomp), library=lib3)
-            del phi, phi_v, pv, dwv, dwg, out, libs, W
+            if label == "ttm_down":
+                # the multicollinear kernel of a meta-GGA: five components
+                del W
+                dwt = torch.randn((nz, npts), generator=g, device="cuda", dtype=dtype)
+                W = _k3_weights(dwv, dwg, dwt)
+                tau = {**rec(k2.NAME, "five_component"), "gc": npts, "rtol": AO_RTOL[dname]}
+                _check(checks, tau,
+                       lambda: k2.grid_rho1(phi, z, 0, v0, None, phi_v=phi_v, ncomp=5),
+                       lambda: k2.grid_rho1_plain(phi, z, 0, v0, None, phi_v=phi_v, ncomp=5),
+                       True, fl.grid_rho1_flops(nz, n_o, n_v, npts, 5),
+                       fl.grid_rho1_bytes(nz, n_o, n_v, npts, isz, 5, masked=False),
+                       library=lambda: _tau_row(phi[1:4][:, :, o], z, pv[1:4][:, :, v]),
+                       library_of=lambda w: w[:, 4])
+                _check(checks, {**rec(k3.NAME, "five_component"), "gc": npts,
+                                "rtol": AO_RTOL[dname]},
+                       lambda: k3.grid_back(dwv, dwg, phi, 0, v0, out.zero_(), phi_v=phi_v,
+                                            dwt=dwt).clone(),
+                       lambda: k3.grid_back_plain(dwv, dwg, phi, 0, v0, out.zero_(),
+                                                  phi_v=phi_v, dwt=dwt).clone(),
+                       True, fl.grid_back_flops(nz, n_o, n_v, npts, 5),
+                       fl.grid_back_bytes(nz, n_o, n_v, npts, isz, 5),
+                       library=lambda: torch.einsum("cgo,xcdg,dgv->xov", phi[:, :, o], W,
+                                                    pv[:, :, v]))
+                del dwt
+            del phi, phi_v, pv, dwv, dwg, out, libs, W, M4
             torch.cuda.empty_cache()
         for shape in AO_SHAPES:
             if dtype in shape[-1]:
@@ -476,6 +584,9 @@ AO_SHAPES = (("ttm_ao", 182, 4412, 187644, BOTH), ("dzp_ao", 598, 3990, 187644, 
 # 3 (294,480 points), the largest in-core size, whole grid in one launch
 SMALL_AO_SHAPES = (("ch2o_sigma", 38, None, 100738, 10, True),
                    ("benzene_scf", 114, None, 294480, 2, False))
+# the shapes whose AO modes also run with the meta-GGA tau row and term: the
+# TTM SCF's and the in-core sigma's stack on CH2O+
+TAU_AO_SHAPES = ("ttm_ao", "ch2o_sigma")
 # the JAX functions each kernel computes in the SCF's Fock build
 SCF_REPLACES = {"df_exchange": "xtddft_tpu/scf/env.py:244",
                 "grid_rho1": "xtddft_tpu/xc/interface.py:53",
@@ -584,6 +695,32 @@ def _ao_checks(checks, g, dtype, label, nao, naux, npts, nz=2, nonsym=False, tab
            fl.grid_ao_flops(nz, nao, npts), nbytes,
            library=lambda: torch.einsum("cgi,xcdg,dgj->xij", ao, W, ao),
            twin=lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_()).clone())
+    if label in TAU_AO_SHAPES:
+        # the meta-GGA modes: the SCF's (fixed order, the atomic order beside)
+        # or, on a molecule's table with its mask, the in-core sigma's
+        # (`fxc_v1mat` with a 6-tuple: atomic, the fixed order beside)
+        dwt = torch.randn((nz, npts), generator=g, device="cuda", dtype=dtype)
+        Wt = _k3_weights(dwv, dwg, dwt)
+        fixed = mask is None
+        _check(checks, rec(k2.NAME, "hermi_tau", gc=npts, fixed_order=fixed),
+               lambda: k2.grid_rho1(ao, dms, 0, 0, mask, ncomp=5, hermi=True, fixed_order=fixed),
+               lambda: k2.grid_rho1_plain(ao, dms, 0, 0, mask, ncomp=5, hermi=True), True,
+               fl.grid_ao_flops(nz, nao, npts, tau=True),
+               fl.grid_ao_bytes(nz, nao, npts, isz, 5, masked=not fixed),
+               library=lambda: _tau_row(ao[1:4], dms, ao[1:4], mask),
+               library_of=lambda w: w[:, 4],
+               twin=lambda: k2.grid_rho1(ao, dms, 0, 0, mask, ncomp=5, hermi=True,
+                                         fixed_order=not fixed))
+        _check(checks, rec(k3.NAME, "ao_tau", gc=npts, fixed_order=fixed),
+               lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_(), fixed_order=fixed,
+                                    dwt=dwt).clone(),
+               lambda: k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.zero_(), dwt=dwt).clone(),
+               True, fl.grid_ao_flops(nz, nao, npts, tau=True),
+               fl.grid_ao_bytes(nz, nao, npts, isz, 5),
+               library=lambda: torch.einsum("cgi,xcdg,dgj->xij", ao, Wt, ao),
+               twin=lambda: k3.grid_back(dwv, dwg, ao, 0, 0, out.zero_(), fixed_order=not fixed,
+                                         dwt=dwt).clone())
+        del dwt, Wt
     if mask is not None:
         _check(checks, rec(k2.NAME, "hermi_masked", gc=npts, fixed_order=False,
                            masked_share=float(1.0 - mask.mean())),
@@ -771,6 +908,155 @@ def phase7(mf0, e_phase3, k3_ms) -> dict:
         raise AssertionError(f"kernels not launched on the SCF's X-TDA: {idle}")
     rec["xtda"] = xt
     return rec
+
+
+# phase 10: the functionals at TTM's full width, against the JAX package's
+# goldens (`tools/ttm_functional_golden.py`): (xc, XSF-TDA method)
+FUNCTIONAL_LEGS = (("tpssh", 1), ("camb3lyp", 0))
+FUNCTIONAL_GATE_EV = 1e-4
+FUNCTIONAL_GATE_DS2 = 1e-3
+
+
+def _functional_solve(name, run, want_ev, want_ds2=None, nroots: int = 10) -> dict:
+    """One response solve of phase 10: wall, cycles, launches (and those of
+    the modes counted apart) and the gates against the golden; with no
+    golden roots (``want_ev`` None) the roots and <dS^2> are printed, and
+    only convergence and the launches gated."""
+    from xtddft_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    s = time.perf_counter()
+    res = run()
+    _sync()
+    r = {"solve_s": time.perf_counter() - s, "cycles": res.cycles, "nroots": len(res.e),
+         "converged": res.converged, "solver": res.solver,
+         "launches": kernels.launch_counts(), "mode_launches": kernels.mode_launch_counts()}
+    r["k1_launches_per_cycle"] = r["launches"]["df_exchange"] / max(res.cycles, 1)
+    order = np.argsort(res.e_eV)
+    e = res.e_eV[order]
+    r["e_ev"] = e.tolist()
+    if res.ds2 is not None:
+        r["ds2"] = np.asarray(res.ds2)[order].tolist()
+    failed = []
+    if want_ev is not None:
+        nroots = len(want_ev)
+        r["max_dev_ev"] = float(np.abs(e - np.sort(np.asarray(want_ev))[:len(e)]).max())
+        if not r["max_dev_ev"] <= FUNCTIONAL_GATE_EV:
+            failed.append(f"roots off the golden by {r['max_dev_ev']} eV")
+    if want_ds2 is not None:
+        want2 = np.asarray(want_ds2)[np.argsort(want_ev)][:len(e)]
+        r["max_dev_ds2"] = float(np.abs(np.asarray(r["ds2"]) - want2).max())
+        if not r["max_dev_ds2"] <= FUNCTIONAL_GATE_DS2:
+            failed.append(f"<dS^2> off the golden by {r['max_dev_ds2']}")
+    _log(f"phase 10 {name}", json.dumps(r))
+    if not (res.converged and len(res.e) == nroots):
+        failed.append(f"not {nroots}/{nroots} roots converged")
+    idle = [k for k, n in r["launches"].items() if n <= 0]
+    if idle:
+        failed.append(f"kernels not launched: {idle}")
+    if failed:
+        raise AssertionError(f"phase 10 {name}: {failed}")
+    return r
+
+
+def phase10(env) -> dict:
+    """The meta-GGA and range-separated functionals at TTM's full width (182
+    AO, grid 1, density fitted, f64) on phase 3's Env: for TPSSh and for
+    CAM-B3LYP (whose long-range exchange adds the erf-attenuated fit at
+    omega = 0.33), ``ROKS(ttm_vacuum, xc, grid_level=1, df=True)`` from the
+    orbitals of ``tests/data/ttm_ckpt.npz``, then ``XTDA(nstates=10)`` and
+    ``XSFTDA(SA=0, nstates=10)`` (method 1, the multicollinear kernel, for
+    TPSSh; 0 for CAM-B3LYP) on its mean field, each gated against the JAX
+    package's golden of the same calls where it has one (the TPSSh flip leg
+    has none: `golden_ttm_tpssh.json` says why; its roots and <dS^2> are
+    printed, its convergence and launches gated).  TPSSh must launch K2's tau row and
+    K3's tau term in every leg, CAM-B3LYP the exchange-only K1 pass of its
+    long range; the multicollinear kernel at TTM's 187,644 points is timed
+    on its own."""
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.chem import Molecule, geometries
+    from xtddft_tpu_torch.methods.drivers import XSFTDA, XTDA
+    from xtddft_tpu_torch.response.reference_state import make_reference
+    from xtddft_tpu_torch.response.sigma import _rho0
+    from xtddft_tpu_torch.scf import ROKS
+    from xtddft_tpu_torch.xc.mcol import sf_kernel_mcol
+
+    ckpt = np.load(ROOT / "tests/data/ttm_ckpt.npz")
+    mol = Molecule.from_atoms(geometries.ttm_vacuum, basis="sto-3g", spin=1)
+    out = {}
+    for xc, method in FUNCTIONAL_LEGS:
+        golden = json.loads((ROOT / f"tests/data/golden_ttm_{xc}.json").read_text())
+        if golden["xsf_method"] != method:
+            raise AssertionError(f"golden_ttm_{xc}.json solved XSF-TDA method "
+                                 f"{golden['xsf_method']}, not {method}")
+        rec = {}
+        if xc == "camb3lyp":
+            s = time.perf_counter()
+            env.df_B(0.33)
+            _sync()
+            rec["lr_fit_s"] = time.perf_counter() - s
+        scf = ROKS(mol, xc=xc, grid_level=1, df=True, env=env)
+        scf.profile = True
+        kernels.reset_launch_counts()
+        s = time.perf_counter()
+        mf = scf.kernel(init=np.asarray(ckpt["mo_coeff"]))
+        _sync()
+        wall = time.perf_counter() - s
+        n = scf.cycles
+        occ = np.asarray(mf.mo_occ) > 0
+        rec.update({
+            "cycles": n, "converged": mf.converged, "scf_s": wall, "s_per_cycle": wall / n,
+            "stage_s_per_cycle": {k: v / n for k, v in scf.stage_seconds.items()},
+            "launches": kernels.launch_counts(), "mode_launches": kernels.mode_launch_counts(),
+            "e_tot": mf.e_tot, "de_vs_golden_ha": mf.e_tot - golden["e_scf"],
+            "max_deps_occ_ha": float(np.abs(np.asarray(mf.mo_energy)[occ]
+                                            - np.asarray(golden["mo_energy_occ"])).max())})
+        rec["launches_per_cycle"] = {k: v / n for k, v in rec["launches"].items()}
+        _log(f"phase 10 {xc} scf", json.dumps(rec))
+        failed = []
+        if not mf.converged:
+            failed.append("the SCF did not converge")
+        if not abs(rec["de_vs_golden_ha"]) <= SCF_GATE_HA:
+            failed.append(f"e_tot off the golden by {rec['de_vs_golden_ha']} Ha")
+        if not rec["max_deps_occ_ha"] <= SCF_GATE_EPS_HA:
+            failed.append(f"occupied orbital energies off by {rec['max_deps_occ_ha']} Ha")
+        short = [k for k, v in rec["launches"].items() if v < n]
+        if short:
+            failed.append(f"kernels not launched on every Fock build: {short}")
+        if failed:
+            raise AssertionError(f"phase 10 {xc} SCF: {failed}")
+        ref = make_reference(mf)
+        if xc == "tpssh":
+            rho0 = _rho0(ref)
+            s = time.perf_counter()
+            sf_kernel_mcol(ref.spec, env.grid_weights, rho0)
+            _sync()
+            rec["sf_kernel_mcol_s"] = time.perf_counter() - s
+            rec["ngrid"] = int(env.grid_weights.shape[0])
+            del rho0
+        rec["xtda"] = _functional_solve(f"{xc} xtda", lambda: XTDA(ref, nstates=10,
+                                                                  backend="df").kernel(),
+                                        golden["xtda_e_ev"])
+        rec["xsf"] = _functional_solve(
+            f"{xc} xsf", lambda: XSFTDA(ref, SA=0, method=method, nstates=10,
+                                        backend="df").kernel(),
+            golden["xsf_e_ev"], golden["xsf_ds2"])
+        # the modes that the functional needs must have launched in every leg
+        need = (("grid_rho1.tau", "grid_back.tau") if xc == "tpssh"
+                else ("df_exchange.exchange_only",))
+        for leg in (rec, rec["xtda"], rec["xsf"]):
+            idle = [k for k in need if leg["mode_launches"][k] <= 0]
+            if idle:
+                raise AssertionError(f"phase 10 {xc}: modes not launched: {idle}")
+        if xc == "camb3lyp" and not rec["xtda"]["mode_launches"]["df_exchange.exchange_only"] \
+                == rec["xtda"]["launches"]["df_exchange"] // 2:
+            raise AssertionError(f"phase 10 camb3lyp X-TDA: the long-range K1 pass is not one "
+                                 f"of two K1 launches: {rec['xtda']['launches']}")
+        out[xc] = rec
+        del scf, mf, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _roks_gradient(scf, mf, va, vb):
@@ -1472,6 +1758,8 @@ def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
              and c["shape"] == "ttm_ao" and c["dtype"] == "float64"][0]
     record["scf"] = phase7(ref.mf, record["ttm"]["e_ev"], k3_ao["ms"])
     done("phase 7")
+    record["functionals"] = phase10(ref.mf.env)
+    done("phase 10")
     vectors = None if out is None else pathlib.Path(out).with_name(
         pathlib.Path(out).stem + "_dzp_vectors.npz")
     if vectors is not None:
@@ -1515,12 +1803,14 @@ def main(argv=None) -> int:
         # group's span
         main_check = [c for c in record["kernels"]["checks"]
                       if c["kernel"] == m.NAME and c["shape"] == "ttm"
-                      and c["dtype"] == "float64" and c.get("spin") == "a"][-1]
+                      and c["dtype"] == "float64" and c.get("spin") == "a"
+                      and "mode" not in c][-1]
         # the flip mode that phase 5 runs (exchange-only, value-only), where
         # one library call computes the function
         flip_check = [c for c in record["kernels"]["checks"]
                       if c["kernel"] == m.NAME and c["shape"] == "ttm_down"
-                      and c["dtype"] == "float64" and c.get("library_ms") is not None][-1]
+                      and c["dtype"] == "float64"
+                      and c["mode"] in ("exchange_only", "value_only")][-1]
         # the SCF's AO mode (phase 7's Fock build), f64
         ao_check = [c for c in record["kernels"]["checks"]
                     if c["kernel"] == m.NAME and c["shape"] == "ttm_ao"
@@ -1544,6 +1834,19 @@ def main(argv=None) -> int:
                         if c["kernel"] == m.NAME and c["shape"] == "ch2o_sigma"
                         and c["dtype"] == "float64"
                         and c["mode"] in ("hermi_masked", "ao_value_only")] or [{}])[0]
+        # the meta-GGA modes, f64 (K2's tau row, K3's tau term; K1 has none):
+        # on the X-TDA span, the flip-down block's five components, the
+        # SCF's AO mode and the in-core sigma's masked stack
+        def tau_check(shape, modes):
+            return ([c for c in record["kernels"]["checks"]
+                     if c["kernel"] == m.NAME and c["shape"] == shape
+                     and c["dtype"] == "float64" and c.get("mode") in modes] or [{}])[0]
+
+        tau = {"": tau_check("ttm", ("tau",)),
+               "flip_": tau_check("ttm_down", ("five_component",)),
+               "scf_": tau_check("ttm_ao", ("hermi_tau", "ao_tau")),
+               "incore_": tau_check("ch2o_sigma", ("hermi_tau", "ao_tau"))}
+        fn = record["functionals"]
         entries.append({
             "name": m.NAME, "route": m.ROUTE, "source": m.SOURCE, "replaces": m.REPLACES,
             "launches": record["ttm"]["launches"][m.NAME],
@@ -1574,6 +1877,16 @@ def main(argv=None) -> int:
             **{f"incore_sigma_{k}": sigma_check.get(k) for k in ("mode", "max_abs_err", "ms",
                                                                  "plain_ms", "bound_ms",
                                                                  "library_ms")},
+            **{f"tau_{p}{k}": c.get(k) for p, c in tau.items()
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                         "fixed_order_cost")},
+            # phase 10: per functional, the SCF and its two solves
+            "launches_functionals": {f"{xc}_{leg}": (r if leg == "scf" else r[leg])[
+                "launches"][m.NAME] for xc, r in fn.items() for leg in ("scf", "xtda", "xsf")},
+            "mode_launches_functionals": {
+                f"{xc}_{leg}": {k: v for k, v in (r if leg == "scf" else r[leg])[
+                    "mode_launches"].items() if k.startswith(m.NAME + ".")}
+                for xc, r in fn.items() for leg in ("scf", "xtda", "xsf")},
         })
     record["total_s"] = time.perf_counter() - t_start
     _log("total seconds", record["total_s"])

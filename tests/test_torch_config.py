@@ -171,3 +171,56 @@ def test_incore_sigma_grid_counts():
                                                              + nz * nao * nao)
     assert flops.grid_ao_bytes(nz, nao, npts, 8, masked=True) == (
         flops.grid_ao_bytes(nz, nao, npts, 8) + 8.0 * npts)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+def test_tau_and_rsh_counts(shape):
+    """The meta-GGA and RSH terms of the sigma counts: the tau row of K2 adds
+    three GEMMs (6*nz*nocc*nvir flops per point: the GGA minimum's 4
+    become 10) and their dots with the gradient rows; K3's least with the
+    tau term is its four-component sum, twice the GGA minimum's leading
+    term, so its bound doubles; the sigma count's fifth component; an RSH
+    adds one exchange-only K1 pass per spin block."""
+    nc, no, nv, naux, ngrid, nb = shape
+    blocks = ((nc + no, nv), (nc, no + nv))
+    for o, v in blocks:
+        assert (flops.grid_rho1_flops(nb, o, v, ngrid, 5) - flops.grid_rho1_flops(nb, o, v, ngrid)
+                == 2.0 * nb * ngrid * (3 * o * v + 3 * o))
+        assert flops.grid_rho1_flops(nb, o, v, ngrid, 5) == pytest.approx(
+            2.0 * nb * ngrid * (5 * o * v + 7 * o + 3 * v))
+        lead = flops.grid_back_flops(nb, o, v, ngrid, 5) - 20.0 * nb * ngrid * o
+        assert lead == 2.0 * (flops.grid_back_flops(nb, o, v, ngrid)
+                              - 2.0 * nb * ngrid * (3 * o + 4 * v))
+        # tau reads no fifth table row, and writes one more grid row
+        assert (flops.grid_rho1_bytes(nb, o, v, ngrid, 8, 5) - flops.grid_rho1_bytes(nb, o, v, ngrid, 8)
+                == 8.0 * nb * ngrid)
+        assert (flops.grid_back_bytes(nb, o, v, ngrid, 8, 5) - flops.grid_back_bytes(nb, o, v, ngrid, 8)
+                == 8.0 * nb * ngrid)
+    assert flops.matvec_flops(*shape, tau=True) - flops.matvec_flops(*shape) == sum(
+        4.0 * ngrid * o * v * nb for o, v in blocks)
+    assert flops.matvec_flops(*shape, hyb_terms=2) - flops.matvec_flops(*shape) == pytest.approx(
+        sum(flops.df_exchange_flops(naux, nb, o, v, with_t=False) for o, v in blocks), rel=1e-12)
+    n_o, n_v = nc + no, no + nv
+    assert (flops.sf_matvec_flops(n_o, n_v, naux, ngrid, nb, kdim=5, hyb_terms=2)
+            - flops.sf_matvec_flops(n_o, n_v, naux, ngrid, nb, kdim=4)
+            == flops.df_exchange_flops(naux, nb, n_o, n_v, with_t=False)
+            + 4.0 * ngrid * n_o * n_v * nb)
+
+
+def test_tau_bounds_at_the_ttm_shapes():
+    """K3's bound doubles with the tau term on one TTM chunk (10 vectors,
+    f64); on the AO table, K2 and K3 with tau each do 2*(4*nao^2 + 7*nao)
+    per matrix and point, and the RSH SCF adds an exchange-only K1 pass."""
+    ms4, _ = flops.bound_ms(flops.grid_back_flops(10, 137, 45, 4096),
+                            flops.grid_back_bytes(10, 137, 45, 4096, 8), "float64")
+    ms5, by = flops.bound_ms(flops.grid_back_flops(10, 137, 45, 4096, 5),
+                             flops.grid_back_bytes(10, 137, 45, 4096, 8, 5), "float64")
+    assert by == "operations" and 1.9 < ms5 / ms4 < 2.1
+    naux, nao, npts = 4412, 182, 187644
+    f = flops.scf_veff_flops(naux, nao, npts, tau=True, lr=True)
+    assert f["k2"] == f["k3"] == flops.grid_ao_flops(2, nao, npts, tau=True) == (
+        4.0 * npts * (4 * nao * nao + 7 * nao))
+    assert f["k1_lr"] == flops.df_exchange_flops(naux, 2, nao, nao, with_t=False)
+    assert f["total"] == f["k1"] + f["coulomb"] + f["k1_lr"] + f["k2"] + f["k3"]
+    assert flops.grid_ao_bytes(2, nao, npts, 8, 5) - flops.grid_ao_bytes(2, nao, npts, 8) == (
+        8.0 * 2 * npts)

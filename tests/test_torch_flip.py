@@ -7,7 +7,9 @@
 (b) the same on a JAX ``synthetic_df_data`` carried across with
     ``df_data_from_arrays`` (there also method 1, the multicollinear
     kernel), and with random UKS twins (``B_b``, ``phi_b``)
-    added on both sides, through `xtda_sigma_df` too;
+    added on both sides, through `xtda_sigma_df` too; and with a
+    range-separated hybrid's long-range tensor (``B_lr``, ``hyb_lr``) or a
+    TPSSh tau pair added on both sides;
 (c) the SF kernels (`sf_kernel_alda0` on the FH grid, `sf_kernel_mcol` on
     the synthetic one), to relative 1e-9;
 (d) `delta_a_tensors_from_df` and `apply_delta_a` alone, to relative 1e-12;
@@ -38,6 +40,7 @@ from xtddft_tpu.response import xsf_terms as jax_xsf_terms
 from xtddft_tpu.response.reference_state import make_reference as jax_make_reference
 from xtddft_tpu.scf.checkpoint import load_mf as jax_load_mf
 from xtddft_tpu.xc import interface as jax_xci
+from xtddft_tpu.xc import registry as jax_registry
 from xtddft_tpu_torch.methods import drivers
 from xtddft_tpu_torch.props import spin
 from xtddft_tpu_torch.response import sigma_df, spaces, xsf_terms
@@ -72,7 +75,7 @@ def _carry(jdata):
     """A JAX DFData as the port's, through host arrays."""
     fields = {f.name: getattr(jdata, f.name) for f in dataclasses.fields(jdata)}
     fields["rho0"] = [np.asarray(r) for r in jdata.rho0]
-    for k in ("B", "phi", "grid_w", "B_b", "phi_b"):
+    for k in ("B", "phi", "grid_w", "B_b", "phi_b", "B_lr", "B_lr_b"):
         if fields.get(k) is not None:
             fields[k] = np.asarray(fields[k])
     return sigma_df.df_data_from_arrays(fields, jdata.spec.name, device="cpu",
@@ -301,25 +304,72 @@ def test_doublet_refuses_spin_adaptation(references):
 
 
 @pytest.mark.parametrize("build", ["sf", "xsf"])
-@pytest.mark.parametrize("option", ["spmd", "packed", "rsh", "mgga-mcol"])
+@pytest.mark.parametrize("option", ["spmd", "packed"])
 def test_options_not_ported_raise(build, option):
-    """Each option that is not ported raises, naming its ROADMAP item."""
+    """Each option that is not ported raises, naming its ROADMAP item (the
+    RSH and meta-GGA options are ported since: test_rsh_and_mgga_match_jax)."""
     data = sigma_df.synthetic_df_data(nmo=12, nc=3, no=2, naux=8, ngrid=64,
                                       device="cpu", dtype=torch.float64)
     make = sigma_df.sf_sigma_df if build == "sf" else sigma_df.xsf_sigma_df
     kw = {}
     if option == "spmd":
         kw["spmd"] = True
-    elif option == "packed":
-        data = dataclasses.replace(data, packed=True)
-    elif option == "rsh":
-        data = dataclasses.replace(data, B_lr=data.B, hyb_lr=0.3)
     else:
-        data = dataclasses.replace(
-            data, spec=dataclasses.replace(data.spec, xc_type="mgga"))
-        kw["method"] = 1
+        data = dataclasses.replace(data, packed=True)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         make(data, **kw)
+
+
+def _with_rsh(jdata, seed=11):
+    """The synthetic data with a second symmetric tensor as the long-range
+    fit B_lr (and its beta twin where the data has one), at CAM-B3LYP's
+    alpha - hyb."""
+    rng = np.random.default_rng(seed)
+
+    def sym_like(B):
+        a = rng.normal(size=B.shape) / np.sqrt(B.shape[0] * B.shape[1])
+        return jnp.asarray(0.5 * (a + a.transpose(0, 2, 1)))
+
+    kw = {"B_lr": sym_like(jdata.B), "hyb_lr": 0.46}
+    if jdata.B_b is not None:
+        kw["B_lr_b"] = sym_like(jdata.B_b)
+    return dataclasses.replace(jdata, **kw)
+
+
+def _with_tau(jdata, seed=12):
+    """The synthetic data as a TPSSh reference: the tau pair on the grid,
+    above the von Weizsaecker bound (well conditioned, as tests/test_mgga.py
+    keeps its points)."""
+    rng = np.random.default_rng(seed)
+    ra, rb, ga, gb = (np.asarray(r) for r in jdata.rho0)
+    ng = ra.shape[0]
+    taus = tuple(jnp.asarray(np.einsum("xg,xg->g", g, g) / (8 * r) * rng.uniform(1.5, 4.0, ng)
+                             + 0.05 * r) for r, g in ((ra, ga), (rb, gb)))
+    return dataclasses.replace(jdata, spec=jax_registry.resolve("tpssh"), hyb=0.1,
+                               rho0=tuple(jdata.rho0) + taus)
+
+
+RSH_MGGA_CASES = {
+    "sf-rsh": (lambda m, d: m.sf_sigma_df(d, "down", 0), "rsh"),
+    "sf-up-rsh-uks": (lambda m, d: m.sf_sigma_df(d, "up", 0), "rsh-uks"),
+    "xsf-rsh": (lambda m, d: m.xsf_sigma_df(d, SA=3), "rsh"),
+    "xtda-rsh-uks": (lambda m, d: m.xtda_sigma_df(d), "rsh-uks"),
+    "sf-mgga-mcol": (lambda m, d: m.sf_sigma_df(d, "down", 1), "mgga"),
+    "xsf-mgga-mcol": (lambda m, d: m.xsf_sigma_df(d, SA=3, method=1), "mgga"),
+    "xtda-mgga": (lambda m, d: m.xtda_sigma_df(d), "mgga"),
+}
+
+
+@pytest.mark.parametrize("case", list(RSH_MGGA_CASES))
+def test_rsh_and_mgga_match_jax(sources, case):
+    """The RSH long-range exchange (a second, exchange-only K1 pass on B_lr
+    scaled by hyb_lr) and the meta-GGA tau channel (K2's tau row, K3's tau
+    term, the five-component multicollinear kernel) on synthetic data
+    carried across, against the JAX sigmas."""
+    make, option = RSH_MGGA_CASES[case]
+    jdata = sources["uks" if option == "rsh-uks" else "synthetic"][0]
+    jdata = _with_tau(jdata) if option == "mgga" else _with_rsh(jdata)
+    _check_operator(make(jax_sigma_df, jdata), make(sigma_df, _carry(jdata)), 40)
 
 
 @pytest.mark.parametrize("which", ["sf-down-mcol", "xsf"])

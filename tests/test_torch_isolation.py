@@ -50,6 +50,9 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.props.oscillator",
     "xtddft_tpu_torch.props.spin",
     "xtddft_tpu_torch.props.irreps",
+    "xtddft_tpu_torch.props.tdm",
+    "xtddft_tpu_torch.props.diagnostics",
+    "xtddft_tpu_torch.props.export",
     "xtddft_tpu_torch.methods.drivers",
     "xtddft_tpu_torch.kernels",
 ]

@@ -173,6 +173,84 @@ def test_grid_rho1_edges(cuda, shape, dtype, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True], ids=["atomic", "fixed_order"])
+@pytest.mark.parametrize("shape", list(K2_EDGES.values()), ids=list(K2_EDGES))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11), (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_tau_modes_match_plain(cuda, shape, fixed, dtype, rtol):
+    """The meta-GGA modes at K2's tile edges (ragged tiles, one vector, 4099
+    points, overlapping o/v ranges with two tables): K2 with its tau row
+    (``ncomp=5``), with and without mask, and K3 with its tau term
+    (``dwt``), in the atomic and in the fixed order; the fixed order repeats
+    bitwise."""
+    nmo, nocc, o0, v0, nvir, nz, gc, two, g0 = shape
+    g = torch.Generator(cuda).manual_seed(12)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda, dtype=dtype)
+
+    phi = randn(4, g0 + gc + 8, nmo)[:, g0:g0 + gc]
+    phi_v = randn(4, gc + 8, nmo)[:, g0:g0 + gc] if two else None
+    z = randn(nz, nocc, nvir)
+    mask = (torch.rand(gc, generator=g, device=cuda) > 0.1).to(dtype)
+    before = (k2.launches, k3.launches)
+    for m in (None, mask):
+        want = k2.grid_rho1_plain(phi, z, o0, v0, m, phi_v=phi_v, ncomp=5)
+        got = [k2.grid_rho1(phi, z, o0, v0, m, phi_v=phi_v, ncomp=5, fixed_order=fixed)
+               for _ in range(2 if fixed else 1)]
+        _rel_close(got[0], want, rtol)
+        if fixed:
+            assert torch.equal(got[0], got[1])
+    dwv, dwg, dwt = randn(nz, gc), randn(nz, 3, gc), randn(nz, gc)
+    acc = randn(nz, nocc, nvir)
+    want = k3.grid_back_plain(dwv, dwg, phi, o0, v0, acc.clone(), phi_v=phi_v, dwt=dwt)
+    got = [k3.grid_back(dwv, dwg, phi, o0, v0, acc.clone(), phi_v=phi_v, fixed_order=fixed,
+                        dwt=dwt) for _ in range(2 if fixed else 1)]
+    _rel_close(got[0], want, rtol)
+    if fixed:
+        assert torch.equal(got[0], got[1])
+    n = 2 if fixed else 1
+    assert (k2.launches, k3.launches) == (before[0] + 2 * n, before[1] + n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nao", [37, 183])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_tau_ao_modes_match_plain(cuda, nao, dtype, rtol):
+    """The meta-GGA SCF's AO modes: K2 hermitian with its tau row and K3 on
+    the AO table with its tau term, fixed order (bitwise twice) and atomic,
+    on a ragged 4099-point grid; and the in-core sigma's masked stack."""
+    g = torch.Generator(cuda).manual_seed(13)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda, dtype=dtype)
+
+    gc = 4099
+    c = randn(2, nao, 9)
+    dms = c @ c.transpose(1, 2)
+    ao = randn(4, gc, nao)
+    mask = (torch.rand(gc, generator=g, device=cuda) > 0.06).to(dtype)
+    for m in (None, mask):
+        want = k2.grid_rho1_plain(ao, dms, 0, 0, m, ncomp=5, hermi=True)
+        rho = [k2.grid_rho1(ao, dms, 0, 0, m, ncomp=5, hermi=True, fixed_order=True)
+               for _ in range(2)]
+        _rel_close(rho[0], want, rtol)
+        assert torch.equal(rho[0], rho[1])
+        _rel_close(k2.grid_rho1(ao, dms, 0, 0, m, ncomp=5, hermi=True), want, rtol)
+    dwv, dwg, dwt = randn(2, gc), randn(2, 3, gc), randn(2, gc)
+    out = torch.zeros((2, nao, nao), device=cuda, dtype=dtype)
+    want = k3.grid_back_plain(dwv, dwg, ao, 0, 0, out.clone(), dwt=dwt)
+    vm = [k3.grid_back(dwv, dwg, ao, 0, 0, out.clone(), fixed_order=True, dwt=dwt)
+          for _ in range(2)]
+    _rel_close(vm[0], want, rtol)
+    assert torch.equal(vm[0], vm[1])
+    _rel_close(k3.grid_back(dwv, dwg, ao, 0, 0, out.clone(), dwt=dwt), want, rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nao", [37, 183])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
                          ids=["f64", "f32"])

@@ -186,12 +186,13 @@ def test_roothaan_fock_matches_jax(fh_roks_df, fh_env):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("kw", [{"df": False}, {"engine": "device"}, {"x2c": True},
-                                {"xc": "tpss"}], ids=["in_core", "device_engine", "x2c", "mgga"])
+@pytest.mark.parametrize("kw", [{"df": False}, {"engine": "device"}, {"x2c": True}],
+                         ids=["in_core", "device_engine", "x2c"])
 def test_unported_parts_raise(kw):
     """(d) Each part the port does not have yet raises, naming its item.  The
     in-core ERIs are ported since (tests/test_torch_incore.py): that case
-    now builds an in-core Env."""
+    now builds an in-core Env.  The meta-GGA SCF is ported since
+    (tests/test_torch_functionals.py)."""
     kw = {"xc": "b3lyp", **kw}
     if kw.get("df") is False:
         assert not SCF(_fh(), "roks", grid_level=1, device="cpu", **kw).env.df

@@ -13,7 +13,14 @@
 //
 // NC = 4 is that (GGA fxc, multicollinear SF kernel); NC = 1 keeps the value
 // component alone, r = sum_g dwv po_0 pv_0 (the ALDA0 SF kernel), a quarter
-// of the multiply-adds.
+// of the multiply-adds.  With a fifth weight row dwt (meta-GGA, TAU: the
+// tau term of `sigma_df.py:531-533`, the flip `:1131-1133` and the AO table's
+// `xc/interface.py:112-121`) the gradient factors become
+//
+//   F_y[x, g, o] = dwg[x, y, g] po_0[g, o] + 1/2 dwt[x, g] po_y[g, o],
+//
+// which adds 1/2 sum_g dwt sum_y po_y pv_y at 3 FMAs per row and point in
+// the transform; K stays 4 x the points.
 //
 // Bound on an H100: flops.  A GGA back-projection needs only
 // r = sum_g [po_0[g, o], E] [G; pv_0[g, v]] per vector, with
@@ -24,7 +31,9 @@
 // chunk (4*gc*nmo) is 0.02 ms of bytes at the bench shape in f32.  The
 // NC = 4 design below contracts over 4 components (K = 4*npts, x-independent
 // pv operand shared by every vector), twice that minimum; the K = 2*npts form
-// needs both operands per vector.  NC = 1 does the minimum.
+// needs both operands per vector.  NC = 1 does the minimum, and so does
+// NC = 4 with the tau term, whose own least is the four-component sum
+// (8*nz*nocc*nvir per point).
 //
 // Design: one GEMM on the tile core of `gemm_tile.cuh` with M = nz*nocc
 // (rows (x, o)), N = nvir and K = NC components x the points of the span:
@@ -46,7 +55,8 @@
 // vector, columns from an aligned start, see GridBack); else one element at
 // a time.
 //
-// Layout: dwv (nz, gc) and dwg (nz, 3, gc; null selects NC = 1) contiguous;
+// Layout: dwv (nz, gc), dwg (nz, 3, gc; null selects NC = 1) and dwt (nz,
+// gc; null: no tau term; only with dwg) contiguous;
 // phi_o, phi_v any strided (>= NC, gc, nmo) views (strides oc, og, om and vc,
 // vg, vm); out (nz, nocc, nvir) contiguous, accumulated; W (null: atomics)
 // holds wcap elements, at least one slice of nz*nocc*nvir.  Launches on the
@@ -64,14 +74,17 @@ namespace {
 // never crosses from one trial vector to the next; columns n = shift + v
 // start at the aligned column v0 - shift (columns n < shift, padding or
 // live occupied columns of the table, are computed and dropped).
-template <class Core, int NC>
+template <class Core, int NC, bool TAU>
 struct GridBack {
   using T = typename Core::Elem;
   static constexpr bool kReduce = true, kTransform = true, kTile = false;
   static constexpr int BK = Core::BK;
+  static constexpr int ND = NC + (TAU ? 1 : 0);  // weight rows: dwv, dwg, dwt
+  static_assert(!TAU || NC == 4, "the tau term goes with the gradient term");
   int M, N, nkt, nq, extra;
   const T* dwv;
   const T* dwg;
+  const T* dwt;
   const T* phio;
   int64_t oc, og, om;
   const T* phiv;
@@ -83,7 +96,8 @@ struct GridBack {
   T* W;  // this launch's slices of the workspace (null: atomics into out)
 
   // stage: A slices [c][k][m] (po_c[g, o], rewritten into F_c), B slices
-  // [c][k][n] (pv_c[g, v]), then dw[(c * BK + k) * NX + xi]
+  // [c][k][n] (pv_c[g, v]), then dw[(c * BK + k) * NX + xi] for the ND
+  // weight rows
   __device__ void load(T* stage, int, int kt, int m0, int n0) const {
     const int g0 = kt * BK, gc_ = gc, nz_ = nz, nocc_ = nocc, noccp_ = noccp, N_ = N;
     const int64_t og_ = og, om_ = om, vg_ = vg, vm_ = vm;
@@ -109,12 +123,14 @@ struct GridBack {
     }
     T* dw = stage + Core::AB_ELEMS;
     const int x0 = m0 / noccp_;
-    for (int i = threadIdx.x; i < NC * BK * NX; i += Core::NT) {
+    for (int i = threadIdx.x; i < ND * BK * NX; i += Core::NT) {
       const int k = i % BK, rest = i / BK;
-      const int c = rest % NC, xi = rest / NC;
+      const int c = rest % ND, xi = rest / ND;
       const int x = x0 + xi, g = g0 + k;
       const bool ok = x < nz_ && g < gc_;
-      const T* src = c == 0 ? dwv + (int64_t)x * gc_ + g : dwg + ((int64_t)x * 3 + c - 1) * gc_ + g;
+      const T* src = c == 0   ? dwv + (int64_t)x * gc_ + g
+                     : c == 4 ? dwt + (int64_t)x * gc_ + g
+                              : dwg + ((int64_t)x * 3 + c - 1) * gc_ + g;
       gt::cp_async_elem(dw + (c * BK + k) * NX + xi, ok ? src : dwv, ok);
     }
   }
@@ -136,12 +152,17 @@ struct GridBack {
         const T d0 = dw[k * NX + xi], d1 = dw[(BK + k) * NX + xi];
         const T d2 = dw[(2 * BK + k) * NX + xi], d3 = dw[(3 * BK + k) * NX + xi];
         f[0] = d0 * p0 + d1 * p1 + d2 * p2 + d3 * p3;
-        f[S] = d1 * p0;
-        f[2 * S] = d2 * p0;
-        f[3 * S] = d3 * p0;
+        if constexpr (TAU) {
+          const T h = T(0.5) * dw[(4 * BK + k) * NX + xi];
+          f[S] = d1 * p0 + h * p1;
+          f[2 * S] = d2 * p0 + h * p2;
+          f[3 * S] = d3 * p0 + h * p3;
+        } else {
+          f[S] = d1 * p0;
+          f[2 * S] = d2 * p0;
+          f[3 * S] = d3 * p0;
+        }
       }
-      // MGGA (not ported yet): F_y += 0.5 * dwt[x, g] * phi_y[g, o] adds the
-      // tau term of `sigma_df.py:531-533`; dwt would be a fifth dw row.
     }
   }
 
@@ -156,8 +177,8 @@ struct GridBack {
   }
 };
 
-template <typename T, int NC>
-int launch_nc(const T* dwv, const T* dwg, const T* phio, long long oc, long long og,
+template <typename T, int NC, bool TAU>
+int launch_nc(const T* dwv, const T* dwg, const T* dwt, const T* phio, long long oc, long long og,
               long long om, const T* phiv, long long vc, long long vg, long long vm, int gc,
               int nz, int nocc, int nvir, int o0, int v0, T* out, T* W, int64_t wcap,
               void* stream) {
@@ -170,47 +191,51 @@ int launch_nc(const T* dwv, const T* dwg, const T* phio, long long oc, long long
   const int noccp = veco ? (nocc + V - 1) / V * V : nocc;
   const int shift = vecv ? v0 % V : 0;
   const int nx = std::min(nz, (Core::BM - 1) / noccp + 2);
-  const int extra = (NC * Core::BK * nx + V - 1) / V * V;  // keeps each stage 16-byte aligned
-  const GridBack<Core, NC> p{nz * noccp, shift + nvir, (gc + Core::BK - 1) / Core::BK, 1, extra,
-                             dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, noccp,
-                             nvir, o0, v0, shift, nx, veco, vecv, out, nullptr};
+  using P = GridBack<Core, NC, TAU>;
+  const int extra = (P::ND * Core::BK * nx + V - 1) / V * V;  // keeps each stage 16-byte aligned
+  const P p{nz * noccp, shift + nvir, (gc + Core::BK - 1) / Core::BK, 1, extra,
+            dwv, dwg, dwt, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, noccp,
+            nvir, o0, v0, shift, nx, veco, vecv, out, nullptr};
   return (int)gt::launch_fixed<Core>(p, W, wcap, (int64_t)nz * nocc * nvir, out,
                                      reinterpret_cast<cudaStream_t>(stream));
 }
 
 template <typename T>
-int launch(const T* dwv, const T* dwg, const T* phio, long long oc, long long og, long long om,
-           const T* phiv, long long vc, long long vg, long long vm, int gc, int nz, int nocc,
-           int nvir, int o0, int v0, T* out, T* W, long long wcap, void* stream) {
-  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 ||
+int launch(const T* dwv, const T* dwg, const T* dwt, const T* phio, long long oc, long long og,
+           long long om, const T* phiv, long long vc, long long vg, long long vm, int gc, int nz,
+           int nocc, int nvir, int o0, int v0, T* out, T* W, long long wcap, void* stream) {
+  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 || (dwt != nullptr && dwg == nullptr) ||
       (W != nullptr && wcap < (int64_t)nz * nocc * nvir))
     return (int)cudaErrorInvalidValue;
-  // a null dwg is the value-only mode
+  // a null dwg is the value-only mode, a null dwt the one without tau
+  if (dwt != nullptr)
+    return launch_nc<T, 4, true>(dwv, dwg, dwt, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc,
+                                 nvir, o0, v0, out, W, wcap, stream);
   if (dwg != nullptr)
-    return launch_nc<T, 4>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                           v0, out, W, wcap, stream);
-  return launch_nc<T, 1>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                         v0, out, W, wcap, stream);
+    return launch_nc<T, 4, false>(dwv, dwg, dwt, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc,
+                                  nvir, o0, v0, out, W, wcap, stream);
+  return launch_nc<T, 1, false>(dwv, dwg, dwt, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc,
+                                nvir, o0, v0, out, W, wcap, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int grid_back_f64(const double* dwv, const double* dwg, const double* phio, long long oc,
-                  long long og, long long om, const double* phiv, long long vc, long long vg,
-                  long long vm, int gc, int nz, int nocc, int nvir, int o0, int v0,
+int grid_back_f64(const double* dwv, const double* dwg, const double* dwt, const double* phio,
+                  long long oc, long long og, long long om, const double* phiv, long long vc,
+                  long long vg, long long vm, int gc, int nz, int nocc, int nvir, int o0, int v0,
                   double* out, double* W, long long wcap, void* stream) {
-  return launch<double>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                        v0, out, W, wcap, stream);
+  return launch<double>(dwv, dwg, dwt, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir,
+                        o0, v0, out, W, wcap, stream);
 }
 
-int grid_back_f32(const float* dwv, const float* dwg, const float* phio, long long oc,
-                  long long og, long long om, const float* phiv, long long vc, long long vg,
-                  long long vm, int gc, int nz, int nocc, int nvir, int o0, int v0,
+int grid_back_f32(const float* dwv, const float* dwg, const float* dwt, const float* phio,
+                  long long oc, long long og, long long om, const float* phiv, long long vc,
+                  long long vg, long long vm, int gc, int nz, int nocc, int nvir, int o0, int v0,
                   float* out, float* W, long long wcap, void* stream) {
-  return launch<float>(dwv, dwg, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir, o0,
-                       v0, out, W, wcap, stream);
+  return launch<float>(dwv, dwg, dwt, phio, oc, og, om, phiv, vc, vg, vm, gc, nz, nocc, nvir,
+                       o0, v0, out, W, wcap, stream);
 }
 
 const char* xk_error_string(int code) {

@@ -14,7 +14,10 @@
 // masked to zero where the ground-state density is negligible (no mask: the
 // spin-flip kernel that multiplies rho1 next is itself zero there).  NC = 4
 // gives all four rows (GGA, multicollinear SF kernel); NC = 1 the value row
-// alone (the ALDA0 SF kernel).
+// alone (the ALDA0 SF kernel); NC = 5 adds the meta-GGA row (`sigma_df.py:
+// 505-507`, the flip `:1121-1124`), the transition kinetic-energy density
+//
+//   rho1[x, 4, g] = 1/2 sum_y sum_ov z[x, o, v] po_y[g, o] pv_y[g, v].
 //
 // The hermitian mode computes the SCF's density on the grid
 // (`xtddft_tpu/xc/interface.py:53` `cache_rho`): one table on both sides,
@@ -44,6 +47,13 @@
 //   - the value row c = 0 rides with the GEMM of fewer rows (u when nvir <
 //     nocc, as at TTM; tmp at the bench width), since the epilogue's cost
 //     goes with M; the value row alone is that one GEMM.
+//   - the tau row (NC = 5): three more GEMMs tmp_y = z . pv_y on the A
+//     operand of tmp (M = rows (x, o), K = v, B = pv_y), each with a
+//     one-component epilogue rho1[x, 4, g] += 1/2 sum_o tmp_y po_y: 6 more
+//     multiply-adds per (x, o, v) and point, the least the row needs (the
+//     GGA minimum's 4*nz*nocc*nvir flops per point become 10).  In the
+//     hermitian mode the same three run on the AO table (D . phi_y, dotted
+//     with phi_y).
 // An epilogue streams one component at a time: it copies the table tile
 // T_c[g, orbital of row] of its BN points and BM rows into shared memory,
 // sums C * T_c over groups of rows (`dot_groups`: a thread's 4 rows in f32,
@@ -71,8 +81,8 @@
 // twice as long as the GEMM on the H100 (PERF.md); its table tile is read
 // once per row tile, so once per trial vector.
 //
-// Layout: phi_o and phi_v are any strided (>= NC, gc, nmo) views (strides
-// oc, og, om and vc, vg, vm); za (for tmp, else null) is [sv + nvir][nz *
+// Layout: phi_o and phi_v are any strided (>= min(NC, 4), gc, nmo) views (strides
+// oc, og, om and vc, vg, vm); za (for tmp and tau, else null) is [sv + nvir][nz *
 // ra] with za[sv + v][x * ra + so + o] = z[x, o, v] and zeros elsewhere; zb
 // (for u, else null) is [so + nocc][nz * rb] with zb[so + o][x * rb + sv +
 // v] = z[x, o, v]; ra >= so + nocc and rb >= sv + nvir are multiples of the
@@ -301,14 +311,18 @@ cudaError_t launch_side(int ne, const T* A, int lda, int K, const T* Bt, int64_t
 // po_0).  The value row rides with u when vu, else with tmp; the gradient
 // rows with both.  The hermitian mode (one table, o0 == v0, nocc == nvir,
 // z symmetric) runs tmp alone over every row, its gradient rows doubled.
+// ncomp = 5 then runs tmp_y = za . pv_y for y = 1..3 into row 4, each with
+// po_y in its epilogue and the factor 1/2 (in both modes).
 template <typename T>
 int launch(const T* phio, long long oc, long long og, long long om, const T* phiv, long long vc,
            long long vg, long long vm, int gc, const T* za, int ra, const T* zb, int rb, int so,
            int sv, int nz, int nocc, int nvir, int o0, int v0, int ncomp, int vu, int hermi,
            const T* mask, T* out, T* W, long long wcap, void* stream) {
   constexpr int RG = gt::Core<T, 16, 1, 3, gt::NMAJOR, true>::RG;
-  const bool tmp = hermi || ncomp == 4 || !vu, u = !hermi && (ncomp == 4 || vu);
-  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 || (ncomp != 1 && ncomp != 4) ||
+  const int ng = ncomp < 4 ? ncomp : 4;  // the value and gradient rows
+  const bool tmp = hermi || ng == 4 || !vu, u = !hermi && (ng == 4 || vu);
+  if (nz <= 0 || nocc <= 0 || nvir <= 0 || gc <= 0 ||
+      (ncomp != 1 && ncomp != 4 && ncomp != 5) ||
       (hermi && (vu || phio != phiv || o0 != v0 || nocc != nvir)) ||
       so < 0 || so > o0 || sv < 0 || sv > v0 ||
       (tmp && (za == nullptr || ra % RG != 0 || ra < so + nocc)) ||
@@ -321,15 +335,19 @@ int launch(const T* phio, long long oc, long long og, long long om, const T* phi
   cudaError_t err = cudaSuccess;
   if (tmp) {
     const int y0 = vu ? 1 : 0;  // the first table component of the epilogue
-    err = launch_side<T>(ncomp - y0, za, nz * ra, sv + nvir, pv, vg, vm, po + y0 * oc, oc, og, om,
+    err = launch_side<T>(ng - y0, za, nz * ra, sv + nvir, pv, vg, vm, po + y0 * oc, oc, og, om,
                          ra, so + nocc, gc, nz, ncomp, y0, T(hermi ? 2 : 1), mask, out, W, wcap,
                          st);
   }
   if (u && err == cudaSuccess) {
     const int y0 = vu ? 0 : 1;
-    err = launch_side<T>(ncomp - y0, zb, nz * rb, so + nocc, po, og, om, pv + y0 * vc, vc, vg, vm,
+    err = launch_side<T>(ng - y0, zb, nz * rb, so + nocc, po, og, om, pv + y0 * vc, vc, vg, vm,
                          rb, sv + nvir, gc, nz, ncomp, y0, T(1), mask, out, W, wcap, st);
   }
+  // the tau row: tmp_y = za . pv_y, dotted with po_y, times 1/2
+  for (int y = 1; ncomp == 5 && y <= 3 && err == cudaSuccess; ++y)
+    err = launch_side<T>(1, za, nz * ra, sv + nvir, pv + y * vc, vg, vm, po + y * oc, oc, og, om,
+                         ra, so + nocc, gc, nz, ncomp, 4, T(0.5), mask, out, W, wcap, st);
   return (int)err;
 }
 

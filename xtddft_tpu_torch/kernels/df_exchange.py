@@ -31,6 +31,9 @@ REPLACES = "xtddft_tpu/response/sigma_df.py:399"
 T_BUDGET_BYTES = 1 << 30  # the kernel's T buffer per call
 
 launches = 0
+# launches by mode, counted with ``launches``: the exchange-only mode (a flip
+# block's K, an RSH's long-range pass, the SCF's long-range K)
+mode_launches = {"exchange_only": 0}
 
 _ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I,
          _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
@@ -136,4 +139,6 @@ def df_exchange(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
             _cuda.stream())
     _cuda.check(lib, NAME, rc)
     launches += 1
+    if not with_t:
+        mode_launches["exchange_only"] += 1
     return t, K

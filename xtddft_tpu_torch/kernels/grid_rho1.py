@@ -21,6 +21,13 @@ operands (`operands`).  ``fixed_order=True`` (the SCF's density) stores
 each partial sum of a point in its own slot of a workspace and adds the
 slots in a fixed order: bitwise-repeatable sums.  A CPU tensor takes the
 plain torch version below; a CUDA tensor launches the kernel or raises.
+
+``ncomp=5`` adds the meta-GGA row, the transition kinetic-energy density
+t = 1/2 sum_y sum_ov z_ov d_y phi_o d_y phi_v (`sigma_df.py:505-507`, the
+flip `:1121-1124`, and in the hermitian mode `xc/interface.py:53`
+``cache_rho(tau=True)``): three more GEMMs tmp_y = z . pv_y (M = vectors x
+occupied rows, K = nvir, the A operand of tmp), each dotted with po_y in
+the tile epilogue into row 4, at 6*nz*nocc*nvir more flops per point.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ REPLACES = "xtddft_tpu/response/sigma_df.py:495"
 MAX_POINTS = (1 << 31) - 256
 
 launches = 0
+# launches by mode, counted with ``launches``: the meta-GGA tau row
+mode_launches = {"tau": 0}
 
 _ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I,
          _cuda.P, _cuda.I, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
@@ -62,7 +71,7 @@ def fixed_order_slots(nz: int, ra: int, rb: int, ncomp: int, gc: int, itemsize: 
     point."""
     rg, qh = _ROW_GROUP[itemsize], _HALF_TILE_GROUPS[itemsize]
     spans = max((r // rg - 1) // qh + 2 for r in (ra, rb) if r > 0)
-    return nz * spans * ncomp * gc
+    return nz * spans * min(ncomp, 4) * gc
 
 
 def operands(z: torch.Tensor, o0: int, v0: int, ncomp: int, hermi: bool = False):
@@ -75,14 +84,15 @@ def operands(z: torch.Tensor, o0: int, v0: int, ncomp: int, hermi: bool = False)
     to a multiple of the epilogue's row group.  The value row goes with the
     GEMM of fewer rows (``vu``: with u, when nvir < nocc), the gradient rows
     with both, so the value row alone needs one operand and the other is
-    None (its row count 0).  The hermitian mode takes tmp alone for every
-    row.  Returns (so, sv, za, ra, zb, rb, vu)."""
+    None (its row count 0).  The tau row (``ncomp=5``) runs on za.  The
+    hermitian mode takes tmp alone for every row.  Returns (so, sv, za, ra,
+    zb, rb, vu)."""
     nz, nocc, nvir = z.shape
     w = 16 // z.element_size()
     rg = _ROW_GROUP[z.element_size()]
     so, sv = o0 % w, v0 % w
     vu = nvir < nocc and not hermi
-    both = ncomp == 4 and not hermi
+    both = ncomp >= 4 and not hermi
     za, ra, zb, rb = None, 0, None, 0
     if both or not vu:
         ra = _round_up(so + nocc, rg)
@@ -98,22 +108,26 @@ def operands(z: torch.Tensor, o0: int, v0: int, ncomp: int, hermi: bool = False)
 def grid_rho1_plain(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
                     mask: torch.Tensor | None = None, phi_v: torch.Tensor | None = None,
                     ncomp: int = 4, hermi: bool = False) -> torch.Tensor:
-    """(nz, ncomp, gc): [rho1, d/dx, d/dy, d/dz][:ncomp] by the einsums of
-    the JAX code (with ``hermi``, of `xc/interface.py:53` `cache_rho`: one
-    product, the gradient doubled)."""
+    """(nz, ncomp, gc): [rho1, d/dx, d/dy, d/dz, tau][:ncomp] by the
+    einsums of the JAX code (with ``hermi``, of `xc/interface.py:53`
+    `cache_rho`: one product, the gradient doubled)."""
     nz, nocc, nvir = z.shape
     o = slice(o0, o0 + nocc)
     v = slice(v0, v0 + nvir)
     pv = phi if phi_v is None else phi_v
     tmp = torch.einsum("xov,gv->xgo", z, pv[0][:, v])
     out = torch.einsum("xgo,go->xg", tmp, phi[0][:, o])[:, None]
-    if ncomp == 4 and hermi:
-        out = torch.cat([out, 2.0 * torch.einsum("xgo,ygo->xyg", tmp, phi[1:4][:, :, o])], dim=1)
-    elif ncomp == 4:
-        g = torch.einsum("xgo,ygo->xyg", tmp, phi[1:4][:, :, o])
+    if ncomp == 5 or (ncomp == 4 and not hermi):
         tmp2 = torch.einsum("xov,ygv->xygo", z, pv[1:4][:, :, v])
+    if ncomp >= 4 and hermi:
+        out = torch.cat([out, 2.0 * torch.einsum("xgo,ygo->xyg", tmp, phi[1:4][:, :, o])], dim=1)
+    elif ncomp >= 4:
+        g = torch.einsum("xgo,ygo->xyg", tmp, phi[1:4][:, :, o])
         g = g + torch.einsum("xygo,go->xyg", tmp2, phi[0][:, o])
         out = torch.cat([out, g], dim=1)
+    if ncomp == 5:
+        t = 0.5 * torch.einsum("xygo,ygo->xg", tmp2, phi[1:4][:, :, o])
+        out = torch.cat([out, t[:, None]], dim=1)
     if mask is None:
         return out
     return torch.where(mask != 0, out, torch.zeros((), dtype=out.dtype, device=out.device))
@@ -123,10 +137,11 @@ def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
               mask: torch.Tensor | None = None, phi_v: torch.Tensor | None = None,
               ncomp: int = 4, hermi: bool = False, fixed_order: bool = False) -> torch.Tensor:
     """rho1[x, 0, g] = sum_ov z[x,o,v] phi[0,g,o0+o] phi_v[0,g,v0+v] and,
-    with ``ncomp=4``, its gradient rho1[x, 1:4, g]; zero where ``mask``
-    (gc,) is 0.
+    with ``ncomp=4``, its gradient rho1[x, 1:4, g], with ``ncomp=5`` also
+    rho1[x, 4, g] = 1/2 sum_y sum_ov z[x,o,v] phi[y,g,o0+o] phi_v[y,g,v0+v]
+    (the kinetic-energy density); zero where ``mask`` (gc,) is 0.
 
-    phi, phi_v (default phi): (>= ncomp, gc, nmo) spans of the MO grid
+    phi, phi_v (default phi): (>= min(ncomp, 4), gc, nmo) spans of the MO grid
     tables of the occupied and the virtual side, any strides; z: (nz, nocc,
     nvir); mask: 0/1 in the working dtype, or None for no masking.
 
@@ -136,8 +151,8 @@ def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     the partial sums of each point are added in a fixed order (bitwise
     repeatable)."""
     global launches
-    if ncomp not in (1, 4):
-        raise ValueError(f"{NAME}: ncomp {ncomp}, expected 1 or 4")
+    if ncomp not in (1, 4, 5):
+        raise ValueError(f"{NAME}: ncomp {ncomp}, expected 1, 4 or 5")
     if hermi and (phi_v is not None or o0 != v0 or z.shape[1] != z.shape[2]):
         raise ValueError(f"{NAME}: the hermitian mode needs one table, o0 == v0 and square "
                          f"z, got phi_v {phi_v is not None}, o0={o0}, v0={v0}, "
@@ -148,7 +163,8 @@ def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
     _cuda.require_cuda(NAME, phi, pv, z, *(() if mask is None else (mask,)))
     nrow, gc, nmo = phi.shape
     nz, nocc, nvir = z.shape
-    if (nrow < ncomp or pv.shape[0] < ncomp or pv.shape[1:] != (gc, nmo)
+    nt = min(ncomp, 4)  # table rows read
+    if (nrow < nt or pv.shape[0] < nt or pv.shape[1:] != (gc, nmo)
             or o0 + nocc > nmo or v0 + nvir > nmo
             or (mask is not None and mask.shape != (gc,))):
         raise ValueError(f"{NAME}: phi {tuple(phi.shape)}, phi_v {tuple(pv.shape)}, "
@@ -170,4 +186,6 @@ def grid_rho1(phi: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
             None if W is None else W.data_ptr(), 0 if W is None else W.numel(), _cuda.stream())
     _cuda.check(lib, NAME, rc)
     launches += 1
+    if ncomp == 5:
+        mode_launches["tau"] += 1
     return out

@@ -2,15 +2,15 @@
 
 Counterpart of the JAX package's `response/fxc_tensor.py`: the weighted
 Hessian of the energy density in the pointwise variables (ra, grad ra, rb,
-grad rb) is contracted against occupied-virtual pair features, which is
-exact for LDA and GGA alike.  The Hessian comes from ``torch.func`` (the
+grad rb), with (ta, tb) for a meta-GGA, is contracted against
+occupied-virtual pair features, which is exact for every family (the tau
+channel is one more feature, 1/2 grad phi_i . grad phi_a).  The Hessian comes from ``torch.func`` (the
 points are independent, so column b of the summed energy's Hessian is one
 jvp of its gradient along direction b on every point at once, the eight
 columns one ``vmap`` over the directions); each block
 is then one matrix product per chunk of 4096 points over the chunk's pair
 features (4, gc, no*nv), which are never formed for the whole grid (benzene
-cc-pVDZ: 256 MB a chunk in f64, 18.4 GB for its 294,480 points).  Meta-GGA
-(the tau column) raises, as everywhere in the port.
+cc-pVDZ: 256 MB a chunk in f64, 18.4 GB for its 294,480 points).
 """
 
 from __future__ import annotations
@@ -28,10 +28,12 @@ DENSE_CHUNK = 4096
 
 
 def weighted_hessian(spec: XCSpec, weights, rho0) -> torch.Tensor:
-    """w * d^2 e / dx^2 per grid point, x = (ra, gax, gay, gaz, rb, gbx,
-    gby, gbz): (ng, 8, 8) (JAX `response/fxc_tensor.py:22`)."""
+    """w * d^2 e / dx^2 per grid point (JAX `response/fxc_tensor.py:22`):
+    x = (ra, gax, gay, gaz, rb, gbx, gby, gbz), (ng, 8, 8), and for a
+    meta-GGA's 6-tuple x = (ra, gax, gay, gaz, ta, rb, ..., tb), (ng, 10,
+    10)."""
     efn = exc_density_fn(spec)
-    ra, rb, ga, gb = rho0[:4]
+    ra, rb, ga, gb, *taus = rho0
     dt, dev = ra.dtype, ra.device
     mask = (ra > MASK_RHO) | (rb > MASK_RHO)
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -40,28 +42,35 @@ def weighted_hessian(spec: XCSpec, weights, rho0) -> torch.Tensor:
     # a benign nonzero gradient on dummy points keeps the second derivatives
     # of sqrt(gamma) terms finite
     small = torch.full((), 1e-3, dtype=dt, device=dev)
-    X = torch.cat([torch.where(mask, ra, one)[None], torch.where(mask[None], ga, small),
-                   torch.where(mask, rb, one)[None], torch.where(mask[None], gb, small)])
+    def spin(r, g, t):
+        return ([torch.where(mask, r, one)[None], torch.where(mask[None], g, small)]
+                + ([] if t is None else [torch.where(mask, t, one)[None]]))
+
+    ta, tb = taus if taus else (None, None)
+    X = torch.cat(spin(ra, ga, ta) + spin(rb, gb, tb))
+    nx = X.shape[0]
+    ns = nx // 2  # variables per spin
 
     def total(x):
-        return torch.sum(efn(x[0], x[4], x[1:4], x[5:8]))
+        return torch.sum(efn(x[0], x[ns], x[1:4], x[ns + 1:ns + 4], *x[4::ns][:len(taus)]))
 
     grad = torch.func.grad(total)
     ng = X.shape[1]
-    H = torch.empty((ng, 8, 8), dtype=dt, device=dev)
+    H = torch.empty((ng, nx, nx), dtype=dt, device=dev)
     for g0 in range(0, ng, HESSIAN_POINTS):
         x = X[:, g0:g0 + HESSIAN_POINTS]
-        # the eight unit directions as one batch of tangents: the primal pass
-        # runs once, not once per column
-        tangents = torch.eye(8, dtype=dt, device=dev)[:, :, None].expand(8, 8, x.shape[1])
+        # the unit directions as one batch of tangents: the primal pass runs
+        # once, not once per column
+        tangents = torch.eye(nx, dtype=dt, device=dev)[:, :, None].expand(nx, nx, x.shape[1])
         cols = torch.func.vmap(lambda t: torch.func.jvp(grad, (x,), (t,))[1])(tangents)
         H[g0:g0 + HESSIAN_POINTS] = cols.permute(2, 1, 0)
     return H * w[:, None, None]
 
 
-def mo_pair_features(ao_c, orb_o, orb_v) -> torch.Tensor:
+def mo_pair_features(ao_c, orb_o, orb_v, tau: bool = False) -> torch.Tensor:
     """(4, gc, no*nv): [phi_i phi_a, grad(phi_i phi_a)] of the (i, a) pairs
-    on a chunk of points, ao_c (4, gc, nao); the JAX `pair_features`
+    on a chunk of points, ao_c (4, gc, nao), and with ``tau`` a fifth row,
+    tau_ia = 1/2 grad phi_i . grad phi_a; the JAX `pair_features`
     (`response/fxc_tensor.py:67`) with the component axis first.  The
     builders form them a chunk at a time."""
     po = ao_c @ orb_o  # (4, gc, no)
@@ -70,7 +79,10 @@ def mo_pair_features(ao_c, orb_o, orb_v) -> torch.Tensor:
     val = po[0][:, :, None] * pv[0][:, None, :]
     grad = po[1:4][:, :, :, None] * pv[0][None, :, None, :] \
         + po[0][None, :, :, None] * pv[1:4][:, :, None, :]
-    return torch.cat([val[None], grad], dim=0).reshape(4, gc, -1)
+    feats = [val[None], grad]
+    if tau:
+        feats.append(0.5 * torch.einsum("ygi,yga->gia", po[1:4], pv[1:4])[None])
+    return torch.cat(feats, dim=0).reshape(-1, gc, po.shape[2] * pv.shape[2])
 
 
 def fxc_blocks(spec: XCSpec, ao, weights, rho0, orbs_a: tuple, orbs_b: tuple,
@@ -83,6 +95,8 @@ def fxc_blocks(spec: XCSpec, ao, weights, rho0, orbs_a: tuple, orbs_b: tuple,
     features serves both.  Per chunk, the sum over points and components
     is one product G^T F with G_d = sum_c F_c H_cd."""
     H = weighted_hessian(spec, weights, rho0)
+    mgga = len(rho0) == 6
+    nf = 5 if mgga else 4
     nova = orbs_a[0].shape[1] * orbs_a[1].shape[1]
     novb = orbs_b[0].shape[1] * orbs_b[1].shape[1]
     kw = dict(dtype=ao.dtype, device=ao.device)
@@ -96,10 +110,10 @@ def fxc_blocks(spec: XCSpec, ao, weights, rho0, orbs_a: tuple, orbs_b: tuple,
 
     for g0 in range(0, ao.shape[1], chunk):
         g = slice(g0, g0 + chunk)
-        Fa = mo_pair_features(ao[:, g], *orbs_a)
-        Fb = Fa if same else mo_pair_features(ao[:, g], *orbs_b)
+        Fa = mo_pair_features(ao[:, g], *orbs_a, tau=mgga)
+        Fb = Fa if same else mo_pair_features(ao[:, g], *orbs_b, tau=mgga)
         Hc = H[g]
-        acc(faa, Fa, Hc[:, 0:4, 0:4], Fa)
-        acc(fab, Fa, Hc[:, 0:4, 4:8], Fb)
-        acc(fbb, Fb, Hc[:, 4:8, 4:8], Fb)
+        acc(faa, Fa, Hc[:, :nf, :nf], Fa)
+        acc(fab, Fa, Hc[:, :nf, nf:], Fb)
+        acc(fbb, Fb, Hc[:, nf:, nf:], Fb)
     return faa, fab, fbb

@@ -7,7 +7,7 @@ operators (the ``backend="incore"`` route of the drivers):
 
 - spin-conserving UTDA/X-TDA (`spin_conserving_sigma`,
   `xtda_sigma_operator`, `utda_sigma_operator`);
-- spin-flip SF-TDA up/down (`sf_sigma_operator`);
+- spin-flip SF-TDA up/down (`sf_sigma_operator`, on `make_sf_vresp`);
 
 each a response in the AO basis per build: the transition matrices of the
 trial vectors, J and K as products with the in-core ERI matrices
@@ -29,16 +29,15 @@ from xtddft_tpu_torch.xc import interface as xci
 
 
 def _rho0(ref: Reference):
-    """Ground-state grid densities (ra, rb, ga, gb) on the Env's device
-    (one K2 launch in its hermitian mode)."""
-    if ref.spec is not None and ref.spec.needs_tau:
-        raise NotImplementedError(
-            "meta-GGA reference: the tau channel is not ported yet "
-            "(ROADMAP queue 1, item 3)")
+    """Ground-state grid densities (ra, rb, ga, gb) on the Env's device, and
+    (ta, tb) after them for a meta-GGA (JAX `response/sigma.py:28`): one K2
+    launch in its hermitian mode."""
     env = ref.env
-    r, g = xci.cache_rho(env.ao, env.tensor(np.stack([ref.orbo_a @ ref.orbo_a.T,
-                                                      ref.orbo_b @ ref.orbo_b.T])))
-    return (r[0], r[1], g[0], g[1])
+    tau = ref.spec is not None and ref.spec.needs_tau
+    r, g, *t = xci.cache_rho(env.ao, env.tensor(np.stack([ref.orbo_a @ ref.orbo_a.T,
+                                                          ref.orbo_b @ ref.orbo_b.T])),
+                             tau=tau)
+    return (r[0], r[1], g[0], g[1]) + ((t[0][0], t[0][1]) if tau else ())
 
 
 @dataclasses.dataclass
@@ -178,11 +177,13 @@ def utda_sigma_operator(ref: Reference) -> SigmaOperator:
     return spin_conserving_sigma(ref, spin_adapt=False)
 
 
-def _sf_vresp(ref: Reference, method: int = 0):
+def make_sf_vresp(ref: Reference, method: int = 0):
     """vresp(dms (n, nao, nao)) -> v1ao for alpha->beta transition matrices:
     the ALDA0 (method 0) or multicollinear (1) kernel, or none (2,
     collinear), minus hyb K (+ the RSH long-range K); no J (JAX
-    `response/sigma.py:239` `_sf_vresp_consts` / `_sf_vresp_raw`)."""
+    `response/sigma.py:282` `make_sf_vresp`).  A meta-GGA's multicollinear
+    kernel carries the tau row and column; its ALDA0 kernel raises, as the
+    JAX package's does."""
     env = ref.env
     hyb, alpha = ref.hyb, ref.alpha
     rsh = _rsh_k(ref)
@@ -228,7 +229,7 @@ def flip_apply(ref: Reference, extype: str, method: int = 0):
         orbo, orbv = env.tensor(ref.orbo_b), env.tensor(ref.orbv_a)
         f_occ = env.tensor(ref.fock_b_mo[:ref.nocc_b, :ref.nocc_b])
         f_vir = env.tensor(ref.fock_a_mo[ref.nocc_a:, ref.nocc_a:])
-    vresp = _sf_vresp(ref, method)
+    vresp = make_sf_vresp(ref, method)
 
     def apply(z):
         dms = orbo @ z @ orbv.T

@@ -12,7 +12,10 @@ Every sigma build is a handful of contractions over the fitted MO tensor
 
 plus the fxc response factored through MO values on the grid (the flip
 channels have no J; their xc kernel is a per-point factor between the two
-grid contractions).  The
+grid contractions).  A range-separated hybrid adds a second exchange pass
+on the erf-attenuated tensor ``B_lr`` scaled by ``hyb_lr``; a meta-GGA adds
+the transition kinetic-energy density (K2's tau row) and its back-projection
+(K3's tau term).  The
 exchange (`kernels/df_exchange.py`) and the two grid contractions of the
 fxc (`kernels/grid_rho1.py`, `kernels/grid_back.py`) are hand-written CUDA
 kernels on the card and their plain torch versions on the CPU.
@@ -54,6 +57,7 @@ class DFData:
        (pq|rs) ~= sum_P B[P,p,q] B[P,r,s].
     phi: (4, ngrid, nmo) MO values+gradients on the DFT grid (None for
        hybrid-only references).
+    rho0: (ra, rb, ga, gb), and (ta, tb) after them for a meta-GGA.
     """
 
     nc: int
@@ -133,8 +137,9 @@ def cast_df_data(data: DFData, dtype=torch.float32,
     """Precision-cast DFData: every tensor and the Fock matrices in ``dtype``.
 
     Grid points whose density falls below ``rho_floor`` are neutralized
-    (weight 0, density 1): real-molecule grids reach rho ~ 1e-30 where GGA
-    fxc derivatives overflow in f32 (the f64 MASK_RHO=1e-11 floor is not
+    (weight 0, density 1, and tau 1 for a meta-GGA: with a zero gradient it
+    gives z = 0): real-molecule grids reach rho ~ 1e-30 where GGA fxc
+    derivatives overflow in f32 (the f64 MASK_RHO=1e-11 floor is not
     low-precision-safe); their true contribution is negligible."""
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     kw = {
@@ -147,7 +152,7 @@ def cast_df_data(data: DFData, dtype=torch.float32,
     if data.fock_hf_mo is not None:
         kw["fock_hf_mo"] = np.asarray(data.fock_hf_mo, dtype=np_dt)
     if data.phi is not None:
-        ra, rb, ga, gb = (r.to(torch.float64) for r in data.rho0)
+        ra, rb, ga, gb, *taus = (r.to(torch.float64) for r in data.rho0)
         w = data.grid_w.to(torch.float64)
         mask = (ra > rho_floor) | (rb > rho_floor)
         zero = torch.zeros((), dtype=torch.float64, device=w.device)
@@ -159,7 +164,7 @@ def cast_df_data(data: DFData, dtype=torch.float32,
             torch.where(mask, rb, one).to(dtype),
             torch.where(mask[None, :], ga, zero).to(dtype),
             torch.where(mask[None, :], gb, zero).to(dtype),
-        )
+        ) + tuple(torch.where(mask, t, one).to(dtype) for t in taus)
     return dataclasses.replace(data, **kw)
 
 
@@ -218,8 +223,10 @@ def synthetic_df_data(nmo=1000, nc=78, no=2, naux=2000, ngrid=49152,
 def df_data_from_arrays(fields: dict, spec_name: str | None, device=None,
                         dtype=torch.float64) -> DFData:
     """DFData from host arrays keyed by DFData field name (``rho0`` as a
-    sequence of arrays; ints and floats as scalars), e.g. a JAX-built
-    DFData carried across as numpy.  ``spec_name`` resolves the XC spec."""
+    sequence of arrays, the meta-GGA 6-tuple included; ints and floats as
+    scalars), e.g. a JAX-built DFData carried across as numpy: every field
+    of DFData (B_lr, hyb_lr, the beta tensors) is carried.  ``spec_name``
+    resolves the XC spec."""
     from xtddft_tpu_torch import config
 
     device, dtype = config.resolve(device, dtype)
@@ -257,9 +264,6 @@ def _refuse_unported(data: DFData, spmd: bool, packed_row: str) -> None:
     if data.packed:
         raise NotImplementedError(
             f"packed B: not ported yet (ROADMAP queue 1, item 9; queue 2 row {packed_row})")
-    if data.B_lr is not None and data.hyb_lr != 0.0:
-        raise NotImplementedError(
-            "RSH long-range exchange (B_lr): not ported yet (ROADMAP queue 1, item 2)")
     if data.B.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sigma: B in f32 or f64 only, got {data.B.dtype}")
 
@@ -269,9 +273,11 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     """Spin-conserving (U/X-)TDA sigma over DF tensors.
 
     Same natural layout and dA math as the JAX `xtda_sigma_df` (alpha
-    (nocca x nvira) rows then beta (noccb x nvirb)): J and K from B, the
-    Fock terms, the spin-adaptation dA terms, and fxc through the MO-grid
-    factorization in grid chunks of 4096 points (zero-weight padded).
+    (nocca x nvira) rows then beta (noccb x nvirb)): J and K from B (and a
+    range-separated hybrid's long-range K from B_lr, one exchange-only K1
+    pass per spin, JAX `:580-588`), the Fock terms, the spin-adaptation dA
+    terms, and fxc through the MO-grid factorization in grid chunks of 4096
+    points (zero-weight padded; a meta-GGA's tau row and term included).
     matvec takes and returns (nz, dim) tensors on B's device in B's dtype."""
     if with_b:
         raise NotImplementedError(
@@ -286,6 +292,10 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     dev, dt = B.device, B.dtype
     hyb = data.hyb
     naux = B.shape[0]
+    has_lr = data.B_lr is not None and data.hyb_lr != 0.0
+    if has_lr:
+        B_lr = data.B_lr
+        Bb_lr = data.B_lr_b if data.B_lr_b is not None else B_lr
 
     def tens(a):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -318,8 +328,12 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         phi_a = _padded(data.phi, axis=1)
         phi_b = _padded(data.phi_b, axis=1) if data.phi_b is not None else phi_a
         w_p = _padded(w_s)
-        ra_s, rb_s, ga_s, gb_s = rho_s
-        rho_p = (_padded(ra_s, 1.0), _padded(rb_s, 1.0), _padded(ga_s), _padded(gb_s))
+        ra_s, rb_s, ga_s, gb_s, *tau_s = rho_s
+        # a meta-GGA's (ta, tb) padded with the benign tau = 1 (JAX :372-377)
+        rho_p = (_padded(ra_s, 1.0), _padded(rb_s, 1.0), _padded(ga_s), _padded(gb_s)) \
+            + tuple(_padded(t, 1.0) for t in tau_s)
+        mgga = bool(tau_s)
+        ncomp = 5 if mgga else 4
         mask_p = _padded(mask.to(dt))
 
     dA = spin_adapt and data.fock_hf_mo is not None and no > 0
@@ -341,22 +355,26 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         pointwise, so it runs over a group of chunks at once: each
         torch.func call dispatches hundreds of small operations, whatever
         the number of points it covers.  K2 and K3 take the group's whole
-        point span in one launch per spin."""
+        point span in one launch per spin (a meta-GGA: K2 with its tau row,
+        K3 with its tau term)."""
         nz = za.shape[0]
         fxa = torch.zeros((nz, nocca, nvira), dtype=dt, device=dev)
         fxb = torch.zeros((nz, noccb, nvirb), dtype=dt, device=dev)
         group = max(1, JVP_POINTS // (nz * gc))
         for c0 in range(0, ngc, group):
             span = slice(c0 * gc, min(ngc, c0 + group) * gc)
-            r1a = grid_rho1(phi_a[:, span], za, 0, nocca, mask_p[span])
-            r1b = grid_rho1(phi_b[:, span], zb, 0, noccb, mask_p[span])
+            r1a = grid_rho1(phi_a[:, span], za, 0, nocca, mask_p[span], ncomp=ncomp)
+            r1b = grid_rho1(phi_b[:, span], zb, 0, noccb, mask_p[span], ncomp=ncomp)
             w_g = w_p[span]
             rho_g = tuple(r[..., span] for r in rho_p)
-            dwva, dwvb, dwga, dwgb = torch.func.vmap(
-                lambda d: respond(w_g, rho_g, d))(
-                    (r1a[:, 0], r1b[:, 0], r1a[:, 1:4], r1b[:, 1:4]))
-            grid_back(dwva, dwga, phi_a[:, span], 0, nocca, fxa)
-            grid_back(dwvb, dwgb, phi_b[:, span], 0, noccb, fxb)
+            drho = (r1a[:, 0], r1b[:, 0], r1a[:, 1:4], r1b[:, 1:4])
+            if mgga:
+                drho = drho + (r1a[:, 4], r1b[:, 4])
+            dv = torch.func.vmap(lambda d: respond(w_g, rho_g, d))(drho)
+            grid_back(dv[0], dv[2], phi_a[:, span], 0, nocca, fxa,
+                      dwt=dv[4] if mgga else None)
+            grid_back(dv[1], dv[3], phi_b[:, span], 0, noccb, fxb,
+                      dwt=dv[5] if mgga else None)
         return fxa, fxb
 
     def matvec(zs):
@@ -369,6 +387,10 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         t = ta + tb
         v1a = (t @ bov_a).reshape(nz, nocca, nvira) - hyb * Ka
         v1b = (t @ bov_b).reshape(nz, noccb, nvirb) - hyb * Kb
+        if has_lr:
+            # the RSH long-range exchange, (alpha - hyb) K over B_lr
+            v1a = v1a - data.hyb_lr * df_exchange(B_lr, za, 0, nocca, with_t=False)[1]
+            v1b = v1b - data.hyb_lr * df_exchange(Bb_lr, zb, 0, noccb, with_t=False)[1]
         if has_xc:
             fxa, fxb = _fxc(za, zb)
             v1a = v1a + fxa
@@ -404,19 +426,12 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
                          device=dev, dtype=dt)
 
 
-def _refuse_unported_flip(data: DFData, spmd: bool, method: int) -> None:
-    _refuse_unported(data, spmd, packed_row="9c")
-    if method == 1 and data.spec is not None and data.spec.needs_tau:
-        raise NotImplementedError(
-            "multicollinear kernel with a meta-GGA: the tau channel is not ported "
-            "yet (ROADMAP queue 1, item 3)")
-
-
 def _flip_block(data: DFData, extype: str, method: int):
     """The part every spin-flip sigma shares, on the rectangular (n_o, n_v)
     block of one flip direction:
 
         apply(z)[x,i,a] = -hyb sum_P Bocc[P,i,j] Bvir[P,a,b] z[x,j,b]     (K1)
+                          (- hyb_lr, the same over B_lr: an RSH's long range)
                           + back(sf_k . rho1(z))                      (K2, K3)
                           + f_vir z - z f_occ,
 
@@ -424,7 +439,9 @@ def _flip_block(data: DFData, extype: str, method: int):
     nmo)); flip-down: (alpha-occupied [0, nc+no), beta-virtual [nc, nmo)),
     whose ranges overlap on the open shells.  There is no Coulomb term.  The
     SF kernel ``sf_k`` carries the quadrature weight and is zero on
-    negligible-density points, so the transition density goes unmasked.
+    negligible-density points, so the transition density goes unmasked.  A
+    meta-GGA's multicollinear kernel is (g, 5, 5): K2 gives the tau row and
+    K3 takes the tau term (JAX `:1019`, `:1121-1133`).
     Returns (apply, n_o, n_v, e_occ, e_vir)."""
     nc, no, nv = data.nc, data.no, data.nv
     B_a, phi_a = data.B, data.phi
@@ -440,6 +457,10 @@ def _flip_block(data: DFData, extype: str, method: int):
     phi_o, phi_v = (phi_a, phi_b)[o_s], (phi_a, phi_b)[v_s]
     dev, dt = B_a.device, B_a.dtype
     hyb = data.hyb
+    has_lr = data.B_lr is not None and data.hyb_lr != 0.0
+    if has_lr:
+        lr = (data.B_lr, data.B_lr_b if data.B_lr_b is not None else data.B_lr)
+        Blr_o, Blr_v = lr[o_s], lr[v_s]
     f_occ_np = np.asarray(data.fock_mo[o_s])[:n_o, :n_o]
     f_vir_np = np.asarray(data.fock_mo[v_s])[v0:, v0:]
     f_occ = torch.as_tensor(f_occ_np, dtype=dt, device=dev)
@@ -454,8 +475,8 @@ def _flip_block(data: DFData, extype: str, method: int):
         else:
             from xtddft_tpu_torch.xc.mcol import sf_kernel_mcol
 
-            sf_k = sf_kernel_mcol(data.spec, data.grid_w, data.rho0).to(dt)  # (g, 4, 4)
-            kdim = 4
+            sf_k = sf_kernel_mcol(data.spec, data.grid_w, data.rho0).to(dt)  # (g, 4|5, 4|5)
+            kdim = int(sf_k.shape[-1])
         ngrid = int(sf_k.shape[0])
 
     def _sf_xc(z):
@@ -472,7 +493,8 @@ def _flip_block(data: DFData, extype: str, method: int):
                 grid_back(sf_k[None, g] * r[:, 0], None, po, 0, v0, out, phi_v=pv)
             else:
                 wv = torch.einsum("gab,xbg->xag", sf_k[g], r)
-                grid_back(wv[:, 0], wv[:, 1:4], po, 0, v0, out, phi_v=pv)
+                grid_back(wv[:, 0], wv[:, 1:4], po, 0, v0, out, phi_v=pv,
+                          dwt=wv[:, 4] if kdim == 5 else None)
         return out
 
     def apply(z):
@@ -483,6 +505,10 @@ def _flip_block(data: DFData, extype: str, method: int):
             _, K = df_exchange(B_o, z, 0, v0, B_vir=None if B_v is B_o else B_v,
                                with_t=False)
             vs = vs - hyb * K
+        if has_lr:
+            _, K = df_exchange(Blr_o, z, 0, v0, B_vir=None if Blr_v is Blr_o else Blr_v,
+                               with_t=False)
+            vs = vs - data.hyb_lr * K
         if has_xc:
             vs = vs + _sf_xc(z)
         return vs
@@ -501,7 +527,7 @@ def sf_sigma_df(data: DFData, extype: str = "up", method: int = 0,
     method: 0 = ALDA0, 1 = multicollinear (LDA/GGA), 2 = collinear (HF
     exchange only).  matvec takes and returns (nz, dim) tensors on B's
     device in B's dtype."""
-    _refuse_unported_flip(data, spmd, method)
+    _refuse_unported(data, spmd, packed_row="9c")
     nc, no, nv = data.nc, data.no, data.nv
     apply, n_o, n_v, e_occ, e_vir = _flip_block(data, extype, method)
     dev, dt = data.B.device, data.B.dtype
@@ -542,7 +568,7 @@ def xsf_sigma_df(data: DFData, SA: int = 3, foo: float = 1.0, fglobal: float = 1
     from xtddft_tpu_torch.response.xsf_terms import (apply_delta_a, delta_a_fock_blocks,
                                                      delta_a_tensors_from_df)
 
-    _refuse_unported_flip(data, spmd, method)
+    _refuse_unported(data, spmd, packed_row="9c")
     nc, no, nv = data.nc, data.no, data.nv
     apply, n_o, n_v, e_occ, e_vir = _flip_block(data, "down", method)
     dev, dt = data.B.device, data.B.dtype

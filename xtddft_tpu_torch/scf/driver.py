@@ -8,12 +8,15 @@ from the Env's J/K (`Env.get_jk`: one launch of K1 `df_exchange` in AO mode
 over density fitting, or two matrix products with the in-core ERIs), the density
 on the grid from K2 `grid_rho1` in its hermitian mode, the functional and
 its derivatives from ``torch.func``, the XC potential matrices from K3
-`grid_back` on the AO table, and the two veff matrices come back.
+`grid_back` on the AO table, and the two veff matrices come back.  A
+meta-GGA adds the kinetic-energy density (K2's tau row) and its potential
+(K3's tau term) to the same two launches.
 ROHF/ROKS orbitals are canonicalized with the Roothaan effective Fock (the
 pyscf.scf.rohf convention, which the spin-adapted dA terms assume).
 
 Not ported: the JAX package's mixed-precision device engine
-(``engine="device"``, `scf/jk_device.py`), x2c and meta-GGA functionals; each raises ``NotImplementedError`` naming its item.
+(``engine="device"``, `scf/jk_device.py`) and x2c; each raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -151,10 +154,6 @@ class SCF:
         self.kind = kind
         self.v_ext = None if v_ext is None else np.asarray(v_ext)
         self.xc = xc_registry.resolve(xc) if xc is not None else None
-        if self.xc is not None and self.xc.needs_tau:
-            raise NotImplementedError(
-                f"{self.xc.name}: meta-GGA SCF, the tau channel is not ported "
-                "yet (ROADMAP queue 1, item 3)")
         if env is None:
             if df is None:
                 # auto: above ~120 AOs the nao^4 in-core tensor (>1.7 GB)
@@ -228,9 +227,11 @@ class SCF:
         return veff[0], veff[1], e2
 
     def _rho_pair(self, da, db):
-        """(ra, rb, ga, gb) on the grid: both spins in one K2 launch."""
-        r, g = xci.cache_rho(self.env.ao, torch.stack([da, db]))
-        return (r[0], r[1], g[0], g[1])
+        """(ra, rb, ga, gb[, ta, tb]) on the grid: both spins in one K2
+        launch, with the tau row for a meta-GGA (JAX `scf/driver.py:208`)."""
+        tau = self.xc is not None and self.xc.needs_tau
+        r, g, *t = xci.cache_rho(self.env.ao, torch.stack([da, db]), tau=tau)
+        return (r[0], r[1], g[0], g[1]) + ((t[0][0], t[0][1]) if tau else ())
 
     def _roothaan_fock(self, fa, fb, dc, do_, S):
         """pyscf.scf.rohf.get_roothaan_fock, dc/do_ = closed/open densities."""

@@ -1,7 +1,9 @@
-"""Exchange-correlation energy densities in torch (LDA and GGA).
+"""Exchange-correlation energy densities in torch (LDA, GGA and meta-GGA).
 
 Every functional is an energy density ``e(rho_a, rho_b, gamma_aa, gamma_ab,
-gamma_bb)`` (energy per volume); first and second derivatives come from
+gamma_bb)`` (energy per volume), a meta-GGA one with the two spin
+kinetic-energy densities ``(tau_a, tau_b)`` as two more arguments; first and
+second derivatives come from
 ``torch.func`` in `xc/interface.py`.  Same formulas, constants and guards as
 the JAX package's `xc/functionals.py`: the density clamp `_safe_rho`, the
 tiny-gradient guard ``+1e-35`` of B88 and the dtype-aware `_clip_zeta` keep
@@ -9,7 +11,7 @@ first and second derivatives finite in f64 and f32.
 
 Implemented: Slater exchange, VWN5 and VWN3(RPA) correlation, PW92
 correlation, B88 exchange (and its ITYH short-range form), LYP correlation,
-PBE exchange/correlation.  The meta-GGA (TPSS) tau channel is not ported yet.
+PBE exchange/correlation, TPSS exchange and correlation (meta-GGA).
 """
 
 from __future__ import annotations
@@ -266,6 +268,127 @@ def pbe_c(ra, rb, gaa, gab, gbb):
     return rho * (eps + H)
 
 
+# ---------------------------------------------------------------- meta-GGA
+#
+# MGGA energy densities take two extra arguments (ta, tb): the spin
+# kinetic-energy densities tau_sigma = 1/2 sum_i |grad phi_i_sigma|^2.
+# TPSS: Tao, Perdew, Staroverov, Scuseria, PRL 91, 146401 (2003); the
+# x(p, z) expression and constants follow eqs. (5)-(12) and the revPKZB
+# correlation eqs. (11)-(14) of the companion JCP 120, 6898 (2004).
+
+def _max(x, c):
+    """max(x, c) with the JAX package's derivative at a tie (half to each
+    side; ``torch.clamp_min`` passes it all to x).  In TPSS the ties are
+    real: |grad zeta|^2 is exactly 0 wherever ra == rb, and its Hessian
+    takes that factor."""
+    c = c if isinstance(c, torch.Tensor) else torch.as_tensor(c, dtype=x.dtype, device=x.device)
+    return torch.maximum(x, c)
+
+
+def _clip(x, lo, hi):
+    """jnp.clip(x, lo, hi), with its derivative at the ends."""
+    return torch.minimum(_max(x, lo), torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+
+
+_TPSS_KAPPA = 0.804
+_TPSS_C = 1.59096
+_TPSS_E = 1.537
+_TPSS_B = 0.40
+_TPSS_MU = 0.21951
+_TPSS_D = 2.8
+
+
+def _tpss_fx(rho, gamma, tau):
+    """TPSS exchange enhancement factor for one spin-unpolarized density."""
+    rho = _safe_rho(rho)
+    gamma = _max(gamma, 0.0)
+    kf2 = (3.0 * math.pi**2 * rho) ** (2.0 / 3.0)
+    p = gamma / (4.0 * kf2 * rho**2)
+    tau_w = gamma / (8.0 * rho)
+    tau_u = 0.3 * kf2 * rho
+    tau = _max(tau, tau_w + 1e-30)  # z <= 1, alpha >= 0 by physics
+    z = tau_w / tau
+    alpha = (tau - tau_w) / _max(tau_u, 1e-30)
+    qb = 0.45 * (alpha - 1.0) / torch.sqrt(
+        1.0 + _TPSS_B * alpha * (alpha - 1.0)
+    ) + 2.0 * p / 3.0
+    z2 = z * z
+    t1 = (10.0 / 81.0 + _TPSS_C * z2 / (1.0 + z2) ** 2) * p
+    t2 = (146.0 / 2025.0) * qb * qb
+    # the dtype's smallest normal number keeps the sqrt's derivative finite
+    # at p = z = 0 (uniform gas, sanitized points): a fixed 1e-60 underflows
+    # to 0 in f32 and the 0/0 returns
+    t3 = -(73.0 / 405.0) * qb * torch.sqrt(
+        0.5 * (0.6 * z) ** 2 + 0.5 * p * p + torch.finfo(p.dtype).tiny
+    )
+    t4 = (1.0 / _TPSS_KAPPA) * (10.0 / 81.0) ** 2 * p * p
+    t5 = 2.0 * math.sqrt(_TPSS_E) * (10.0 / 81.0) * (0.6 * z) ** 2
+    t6 = _TPSS_E * _TPSS_MU * p**3
+    x = (t1 + t2 + t3 + t4 + t5 + t6) / (1.0 + math.sqrt(_TPSS_E) * p) ** 2
+    return 1.0 + _TPSS_KAPPA - _TPSS_KAPPA / (1.0 + x / _TPSS_KAPPA)
+
+
+def _lda_x_density(rho):
+    """Spin-unpolarized LDA exchange energy density (per volume)."""
+    return -(3.0 / 4.0) * (3.0 / math.pi) ** (1.0 / 3.0) * rho ** (4.0 / 3.0)
+
+
+def tpss_x(ra, rb, gaa, gab, gbb, ta, tb):
+    """TPSS exchange via the exact spin scaling
+    E_x[ra, rb] = (E_x[2 ra] + E_x[2 rb]) / 2."""
+    out = 0.0
+    for r, g, t in ((ra, gaa, ta), (rb, gbb, tb)):
+        r2, g2, t2 = 2.0 * r, 4.0 * g, 2.0 * t
+        out = out + 0.5 * _lda_x_density(_safe_rho(r2)) * _tpss_fx(r2, g2, t2)
+    return out
+
+
+def _pbe_eps(ra, rb, gaa, gab, gbb):
+    """PBE correlation energy per particle."""
+    return pbe_c(ra, rb, gaa, gab, gbb) / _safe_rho(ra + rb)
+
+
+def tpss_c(ra, rb, gaa, gab, gbb, ta, tb):
+    """TPSS (revPKZB-based) correlation energy density."""
+    ra = _safe_rho(ra)
+    rb = _safe_rho(rb)
+    rho = ra + rb
+    tau = _max(ta + tb, 1e-30)
+    gtot = _max(gaa + 2.0 * gab + gbb, 0.0)
+    tau_w = gtot / (8.0 * rho)
+    z = _clip(tau_w / _max(tau, tau_w + 1e-30), 0.0, 1.0)
+    zeta = _clip_zeta(ra, rb)
+    # xi = |grad zeta| / (2 (3 pi^2 rho)^(1/3)), |grad zeta|^2 through the
+    # spin gammas (grad zeta = (rb ga - ra gb) 2 / rho^2) in spin-fraction
+    # form (sa = rb/rho, sb = ra/rho): the plain quotient by rho^4 has a
+    # derivative through rho^8, which underflows in f32 below rho ~ 1e-5
+    inv_rho = 1.0 / rho
+    sa = rb * inv_rho
+    sb = ra * inv_rho
+    gznum = _max(sa * sa * gaa - 2.0 * sa * sb * gab + sb * sb * gbb, 0.0)
+    xi2 = (gznum * inv_rho * inv_rho * inv_rho ** (2.0 / 3.0)
+           / (3.0 * math.pi**2) ** (2.0 / 3.0))
+    up = _max(1.0 + zeta, 1e-12)
+    dn = _max(1.0 - zeta, 1e-12)
+    Cnum = 0.53 + 0.87 * zeta**2 + 0.50 * zeta**4 + 2.26 * zeta**6
+    Cden = (1.0 + 0.5 * xi2 * (up ** (-4.0 / 3.0) + dn ** (-4.0 / 3.0))) ** 4
+    C = Cnum / Cden
+    eps = _pbe_eps(ra, rb, gaa, gab, gbb)
+    # per-spin fully polarized PBE epsilons, bounded below by eps
+    tiny = torch.full_like(ra, 1e-15)
+    zg = torch.zeros_like(gaa)
+    eps_a = _max(_pbe_eps(ra, tiny, gaa, zg, zg), eps)
+    eps_b = _max(_pbe_eps(rb, tiny, gbb, zg, zg), eps)
+    z2 = z * z
+    eps_rev = eps * (1.0 + C * z2) - (1.0 + C) * z2 * (
+        (ra / rho) * eps_a + (rb / rho) * eps_b
+    )
+    return rho * eps_rev * (1.0 + _TPSS_D * eps_rev * z2 * z)
+
+
+MGGA_NAMES = frozenset({"tpss_x", "tpss_c"})
+
+
 FUNCTIONALS = {
     "slater": slater_x,
     "b88": b88_x,
@@ -279,4 +402,7 @@ FUNCTIONALS = {
     "pbe_c": pbe_c,
     # fixed-omega short-range exchange component for RSH composites
     "b88_sr@0.33": make_b88_sr(0.33),
+    # meta-GGA (the signature carries the two tau arguments)
+    "tpss_x": tpss_x,
+    "tpss_c": tpss_c,
 }
