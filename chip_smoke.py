@@ -6,7 +6,7 @@ Phases (any failure raises; the script exits non-zero and prints no result):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    no CUDA device is a failure;
-1. build the native integral engine and the CUDA kernels K1-K3 from the
+1. build the native integral engine and the CUDA kernels K1-K4 from the
    checkout's sources, all at once, with the seconds each build took;
 2. each kernel against its plain torch version at the main path's shapes
    (TTM/STO-3G and the nmo=1000 bench operator; K2 and K3 on one 4096-point
@@ -103,7 +103,28 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    components, the SCF's AO modes) and on the in-core sigma's CH2O+ stack,
    f64 to 1e-12 and f32 to 1e-5, with ``library_ms`` the single einsum of
    the tau row alone (K2) and over the per-point weights with W_yy +=
-   dwt / 2 (K3).  Phase 10 runs after phase 7.
+   dwt / 2 (K3).  Phase 10 runs after phase 7;
+11. TDHF/RPA and sTDA at TTM's full width on phase 3's Reference, f64:
+   ``XTDHF(nstates=10, backend="df")`` (the paired DF sigma, whose B half is
+   K1's RPA exchange mode, and the paired Davidson with its stability
+   re-check) gated against ``tests/data/golden_ttm_xtdhf.json`` (roots within
+   1e-4 eV, |osc| within 1e-4, <dS^2> within 1e-3, the pencil's residuals
+   from fresh matvecs within 1e-6, the RPA mode launched in every pair
+   build), with its cycles, pair builds and seconds and the Thouless
+   comparison with phase 3's X-TDA roots (printed, not gated); then
+   ``STDA(nstates=10)`` (sX-TDA, its Coulomb blocks on K4) gated against
+   ``golden_ttm_stda.json`` (the active space and the selected counts per
+   block exactly, roots, osc and <dS^2> within 1e-6), with the seconds of
+   each stage.  Its closed-shell leg runs in phase 9 on the N2 mean field:
+   ``TDHF`` singlet and triplet, dense and DF (within 5e-3 eV), and
+   ``UTDHF``, whose roots must be the lowest of the union of the two (5e-6
+   Ha); phase 9's CH2O+ leg also runs ``STDA(spinadapt=False)`` (sU-TDA),
+   gated as tests/test_golden.py gates the JAX package.  Phase 2 holds K1's
+   RPA mode (both contraction orders: TTM's blocks, f64 and f32, and the
+   bench's and TTM/dzp's alpha blocks, 20 vectors; ``library_ms`` the single
+   einsum over the ov block) and K4 (TTM's selection and final-A blocks and
+   the diagonal, f64; ``library_ms`` the single einsum over gathered
+   tables) against their plain versions.  Phase 11 runs after phase 10.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -200,6 +221,15 @@ def time_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def _df_launch_counts() -> dict:
+    """The launches of the kernels of every DF sigma and Fock build (K1-K3),
+    which the TDA, flip and SCF phases require of each of their runs (K4
+    runs in sTDA alone)."""
+    from xtddft_tpu_torch import kernels
+
+    return {m.NAME: m.launches for m in kernels.DF_MODULES}
+
+
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     """(max abs error, max abs error / max |ref|)."""
     err = float((x - ref).abs().max())
@@ -242,6 +272,11 @@ MAIN_SHAPES = (
     ("bench", 20, 2000, 1000, ((80, 920), (78, 922)), 12, BOTH),
     ("dzp", 20, 3990, 598, ((137, 461), (136, 462)), 12, F64_ONLY),
 )
+# K1's RPA exchange (the B half of a TDHF sigma) at these shapes' spin blocks,
+# with RPA_NZ trial vectors: TTM's two, the bench's 80 x 920 block, TTM/dzp's
+# alpha block
+RPA_SPINS = {"ttm": "ab", "bench": "a", "dzp": "a"}
+RPA_NZ = 20
 # K1 edge cases, checked but not timed: (label, nz, naux, nmo, nocc, nvir)
 K1_EDGES = (
     ("nocc300_odd_naux", 4, 257, 340, 300, 40),
@@ -353,6 +388,83 @@ def _tau_row(a, z, b, mask=None):
     return 0.5 * torch.einsum("xov,ygv,ygo,g->xg", z, b, a, mask)
 
 
+def _rpa_check(checks, rec, B, no, nv, g):
+    """K1's RPA exchange on the (no, nv) block of B against its plain version,
+    timed, with ``library_ms`` the single einsum over the ov block whose
+    operands are ordered for the cheaper contraction (z with the B factor
+    that the kernel's first stage takes)."""
+    from xtddft_tpu_torch.kernels import df_exchange as k1
+    from xtddft_tpu_torch.response import flops as fl
+
+    z = torch.randn((RPA_NZ, no, nv), generator=g, device="cuda", dtype=B.dtype)
+    Bov = B[:, :no, no:no + nv]
+    spec = "xjb,Pib,Pja->xia" if k1.rpa_order(no, nv) == k1.RPA_OV else "xjb,Pja,Pib->xia"
+    r = rec(k1.NAME, mode="rpa_exchange", nz=RPA_NZ, fixed_order=True,
+            order="ov" if k1.rpa_order(no, nv) == k1.RPA_OV else "vo")
+    _check(checks, r, lambda: k1.rpa_exchange(B, z, 0, no),
+           lambda: k1.rpa_exchange_plain(B, z, 0, no), True,
+           fl.rpa_exchange_flops(B.shape[0], RPA_NZ, no, nv),
+           fl.rpa_exchange_bytes(B.shape[0], RPA_NZ, no, nv, B.element_size()),
+           library=lambda: torch.einsum(spec, z, Bov, Bov))
+    del z, Bov
+    torch.cuda.empty_cache()
+
+
+def _stda_checks(checks, g):
+    """K4 at the TTM sX-TDA shapes, f64: random tables of TTM's active space
+    (34 atoms; alpha 73 occupied x 45 virtual, beta 72 x 46) and CSF lists of
+    the sizes its selection gives (`golden_ttm_stda.json`): the P-CSF rows
+    against the N-CSF columns of each spin block (the perturbative
+    selection's coupling), the final A's diagonal blocks, and the diagonal
+    mode over every CSF.  ``library_ms`` is the single einsum over the two
+    gathered (atoms, rows, columns) tensors, gathered outside the timed
+    call."""
+    from xtddft_tpu_torch.kernels import stda_coupling as k4
+    from xtddft_tpu_torch.response import flops as fl
+
+    golden = json.loads((ROOT / "tests/data/golden_ttm_stda.json").read_text())
+    act = golden["active"]
+    natm, nc, no, nv = 34, act["nc"], act["no"], act["nv"]
+    rng = np.random.default_rng(11)
+    for spin, (nocc, nvir, blocks) in zip("ab", ((nc + no, nv, ("cva", "ova")),
+                                                  (nc, no + nv, ("cob", "cvb")))):
+        gt = torch.randn((natm, nocc, nocc), generator=g, device="cuda", dtype=torch.float64)
+        qv = torch.randn((natm, nvir, nvir), generator=g, device="cuda", dtype=torch.float64)
+        o_all, v_all = (a.ravel() for a in np.indices((nocc, nvir)))
+        order = rng.permutation(o_all.size)
+        npcsf = sum(golden["pcsf"][b] for b in blocks)
+        nfinal = sum(golden["final"][b] for b in blocks)
+        p, n = np.sort(order[:npcsf]), np.sort(order[npcsf:])
+        f = np.sort(order[:nfinal])
+        for shape, rows, cols in (("ttm_stda_selection", p, n), ("ttm_stda_final", f, f)):
+            o_r, v_r, o_c, v_c = o_all[rows], v_all[rows], o_all[cols], v_all[cols]
+            idx = [torch.as_tensor(i, device="cuda") for i in (o_r, o_c, v_r, v_c)]
+            go = gt[:, idx[0]][:, :, idx[1]]
+            qg = qv[:, idx[2]][:, :, idx[3]]
+            r = {"kernel": k4.NAME, "shape": shape, "spin": spin, "dtype": "float64",
+                 "natm": natm, "nocc": nocc, "nvir": nvir, "nrow": len(rows),
+                 "ncol": len(cols), "rtol": F64_RTOL, "fixed_order": True}
+            _check(checks, r, lambda: k4.j_block(gt, qv, o_r, v_r, o_c, v_c),
+                   lambda: k4.j_block_plain(gt, qv, o_r, v_r, o_c, v_c), True,
+                   fl.stda_j_flops(len(rows), len(cols), natm),
+                   fl.stda_j_bytes(len(rows), len(cols), natm, nocc, nvir, 8),
+                   library=lambda: torch.einsum("Arq,Arq->rq", go, qg))
+            del go, qg
+        r = {"kernel": k4.NAME, "shape": "ttm_stda_diagonal", "spin": spin, "dtype": "float64",
+             "mode": "diagonal", "natm": natm, "nocc": nocc, "nvir": nvir, "nrow": o_all.size,
+             "rtol": F64_RTOL, "fixed_order": True}
+        od = torch.as_tensor(o_all, device="cuda")
+        vd = torch.as_tensor(v_all, device="cuda")
+        gd, qd = gt[:, od, od], qv[:, vd, vd]
+        _check(checks, r, lambda: k4.j_diagonal(gt, qv, o_all, v_all),
+               lambda: k4.j_diagonal_plain(gt, qv, o_all, v_all), True,
+               fl.stda_j_flops(o_all.size, 1, natm),
+               fl.stda_j_bytes(o_all.size, 1, natm, nocc, nvir, 8, diagonal=True),
+               library=lambda: torch.einsum("Ap,Ap->p", gd, qd))
+        del gt, qv, gd, qd
+    torch.cuda.empty_cache()
+
+
 def phase2() -> dict:
     """Each kernel against its plain version, f64 and f32, TTM and bench
     shapes, both spin blocks (times and bounds at the alpha block); K2 and
@@ -404,6 +516,8 @@ def phase2() -> dict:
                                           k1.df_exchange_plain(B, z, 0, no)]),
                        timed, fl.df_exchange_flops(naux, nz, no, nv),
                        fl.df_exchange_bytes(naux, nz, no, nv, isz))
+                if spin in RPA_SPINS.get(label, ""):
+                    _rpa_check(checks, rec, B, no, nv, g)
                 M = _k2_selection(dtype)
                 for pts, ph in ((gc, phi), (span, phi_span)):
                     mk = mask_span[:pts]
@@ -570,6 +684,7 @@ def phase2() -> dict:
                    False)
     del ch2o_table
     torch.cuda.empty_cache()
+    _stda_checks(checks, g)
     return {"checks": checks}
 
 
@@ -793,7 +908,7 @@ def phase3():
     res = XTDA(ref, nstates=10, backend="df").kernel()
     _sync()
     t["solve"] = time.perf_counter() - s
-    launches = kernels.launch_counts()
+    launches = _df_launch_counts()
     dev = float(np.abs(res.e_eV - e_ref[: len(res.e_eV)]).max())
     rec = {**dims, **t, "launches": launches, "cycles": res.cycles,
            "nroots": len(res.e), "converged": res.converged, "max_dev_ev": dev,
@@ -838,7 +953,7 @@ def phase7(mf0, e_phase3, k3_ms) -> dict:
     mf = scf.kernel()
     _sync()
     wall = time.perf_counter() - s
-    launches = kernels.launch_counts()
+    launches = _df_launch_counts()
     occ = np.asarray(ckpt["mo_occ"]) > 0
     d_e = mf.e_tot - float(ckpt["e_tot"])
     d_eps = float(np.abs(mf.mo_energy[occ] - np.asarray(ckpt["mo_energy"])[occ]).max())
@@ -893,7 +1008,7 @@ def phase7(mf0, e_phase3, k3_ms) -> dict:
     s = time.perf_counter()
     res = XTDA(mf, nstates=10, backend="df").kernel()
     _sync()
-    xt = {"solve_s": time.perf_counter() - s, "launches": kernels.launch_counts(),
+    xt = {"solve_s": time.perf_counter() - s, "launches": _df_launch_counts(),
           "cycles": res.cycles, "nroots": len(res.e), "converged": res.converged,
           "max_dev_ev": float(np.abs(res.e_eV - e_ref[: len(res.e_eV)]).max()),
           "max_dev_vs_phase3_ev": float(np.abs(res.e_eV - np.asarray(e_phase3)).max()),
@@ -930,7 +1045,7 @@ def _functional_solve(name, run, want_ev, want_ds2=None, nroots: int = 10) -> di
     _sync()
     r = {"solve_s": time.perf_counter() - s, "cycles": res.cycles, "nroots": len(res.e),
          "converged": res.converged, "solver": res.solver,
-         "launches": kernels.launch_counts(), "mode_launches": kernels.mode_launch_counts()}
+         "launches": _df_launch_counts(), "mode_launches": kernels.mode_launch_counts()}
     r["k1_launches_per_cycle"] = r["launches"]["df_exchange"] / max(res.cycles, 1)
     order = np.argsort(res.e_eV)
     e = res.e_eV[order]
@@ -1007,7 +1122,7 @@ def phase10(env) -> dict:
         rec.update({
             "cycles": n, "converged": mf.converged, "scf_s": wall, "s_per_cycle": wall / n,
             "stage_s_per_cycle": {k: v / n for k, v in scf.stage_seconds.items()},
-            "launches": kernels.launch_counts(), "mode_launches": kernels.mode_launch_counts(),
+            "launches": _df_launch_counts(), "mode_launches": kernels.mode_launch_counts(),
             "e_tot": mf.e_tot, "de_vs_golden_ha": mf.e_tot - golden["e_scf"],
             "max_deps_occ_ha": float(np.abs(np.asarray(mf.mo_energy)[occ]
                                             - np.asarray(golden["mo_energy_occ"])).max())})
@@ -1059,6 +1174,125 @@ def phase10(env) -> dict:
     return out
 
 
+TDHF_GATE_EV = 1e-4  # TTM X-TDHF roots against golden_ttm_xtdhf.json
+TDHF_GATE_OSC = 1e-4
+TDHF_GATE_DS2 = 1e-3
+TDHF_RESIDUAL = 1e-6  # the pencil's residuals, fresh f64 matvecs
+STDA_GATE = 1e-6  # TTM sX-TDA roots (eV), osc and <dS^2> against golden_ttm_stda.json
+
+
+def _pencil_residuals(ref, res) -> list:
+    """max(|(A+B)(X+Y) - w(X-Y)|, |(A-B)(X-Y) - w(X+Y)|) of each X-TDHF root,
+    from fresh f64 matvecs of a newly built paired operator on the driver's
+    (blocked) vectors, put back in the operator's natural layout."""
+    from xtddft_tpu_torch.response.sigma_df import build_df_data, xtda_sigma_df
+
+    op = xtda_sigma_df(build_df_data(ref), spin_adapt=True, with_b=True)
+    perm = op.to_blocked(np.arange(op.dim, dtype=np.float64)[:, None])[:, 0].astype(np.int64)
+    xpy, xmy = np.empty_like(res.v), np.empty_like(res.v_xmy)
+    xpy[perm], xmy[perm] = res.v, res.v_xmy
+    w = torch.as_tensor(res.e, device=op.device)
+    x, y = torch.as_tensor(xpy.T, device=op.device), torch.as_tensor(xmy.T, device=op.device)
+    ap, bp = op.matvec(x)
+    am, bm = op.matvec(y)
+    rp = torch.linalg.norm(ap + bp - w[:, None] * y, dim=1)
+    rm = torch.linalg.norm(am - bm - w[:, None] * x, dim=1)
+    return torch.maximum(rp, rm).cpu().tolist()
+
+
+def phase11(ref, xtda_e_ev) -> dict:
+    """TDHF/RPA and sTDA at TTM's full width on phase 3's Reference (its Env,
+    grid and fits): ``XTDHF(nstates=10, backend="df")``, f64, gated against
+    ``tests/data/golden_ttm_xtdhf.json`` (converged, the stability re-check
+    passed, roots within TDHF_GATE_EV, |osc| and <dS^2> within theirs, the
+    pencil's residuals from fresh matvecs within TDHF_RESIDUAL, K1's RPA
+    exchange launched in every pair build: one per spin beside the two
+    exchange launches of the A half), with the Thouless comparison against
+    phase 3's X-TDA roots printed; then ``STDA(nstates=10)`` (sX-TDA) gated
+    against ``golden_ttm_stda.json``: the same active space and selected
+    counts per block, roots, osc and <dS^2> within STDA_GATE, K4 launched."""
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.methods.drivers import XTDHF
+    from xtddft_tpu_torch.stda import STDA
+
+    out = {}
+    gx = json.loads((ROOT / "tests/data/golden_ttm_xtdhf.json").read_text())
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    s = time.perf_counter()
+    res = XTDHF(ref, nstates=10, backend="df").kernel()
+    _sync()
+    wall = time.perf_counter() - s
+    launches, modes = kernels.launch_counts(), kernels.mode_launch_counts()
+    n_rpa = modes["df_exchange.rpa_exchange"]
+    e = res.e_eV
+    rec = {"solve_s": wall, "cycles": res.cycles, "pair_builds": n_rpa // 2,
+           "solver": res.solver, "converged": res.converged, "launches": launches,
+           "mode_launches": modes, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "e_ev": e.tolist(), "osc": res.osc.tolist(), "ds2": res.ds2.tolist(),
+           "max_dev_ev": float(np.abs(e - np.asarray(gx["e_ev"])).max()),
+           "max_dev_osc": float(np.abs(res.osc - np.asarray(gx["osc"])).max()),
+           "max_dev_ds2": float(np.abs(res.ds2 - np.asarray(gx["ds2"])).max()),
+           "thouless_rpa_minus_tda_ev": (e - np.asarray(xtda_e_ev)[:len(e)]).tolist()}
+    rec["residuals"] = _pencil_residuals(ref, res)
+    _log("phase 11 xtdhf", json.dumps(rec))
+    _log(f"phase 11 xtdhf: {res.cycles} cycles, {rec['pair_builds']} pair builds, "
+         f"{wall:.2f} s; RPA - X-TDA (Thouless, not gated) eV: "
+         f"{np.round(rec['thouless_rpa_minus_tda_ev'], 5).tolist()}")
+    failed = []
+    if not (res.converged and len(e) == 10 and res.solver == "rpa-davidson+stabcheck"):
+        failed.append(f"not 10/10 converged through the stability re-check ({res.solver})")
+    for k, gate in (("max_dev_ev", TDHF_GATE_EV), ("max_dev_osc", TDHF_GATE_OSC),
+                    ("max_dev_ds2", TDHF_GATE_DS2)):
+        if not rec[k] <= gate:
+            failed.append(f"{k} {rec[k]} above {gate}")
+    if not max(rec["residuals"]) <= TDHF_RESIDUAL:
+        failed.append(f"pencil residuals {max(rec['residuals'])} above {TDHF_RESIDUAL}")
+    if not (n_rpa > 0 and 2 * n_rpa == launches["df_exchange"]):
+        failed.append(f"K1's RPA exchange not in every pair build: {n_rpa} of "
+                      f"{launches['df_exchange']} K1 launches")
+    idle = [k for k in ("grid_rho1", "grid_back") if launches[k] <= 0]
+    if idle:
+        failed.append(f"kernels not launched: {idle}")
+    if failed:
+        raise AssertionError(f"phase 11 TTM X-TDHF: {failed}")
+    out["xtdhf"] = rec
+
+    gs = json.loads((ROOT / "tests/data/golden_ttm_stda.json").read_text())
+    kernels.reset_launch_counts()
+    s = time.perf_counter()
+    drv = STDA(ref, nstates=10)
+    res = drv.kernel()
+    _sync()
+    wall = time.perf_counter() - s
+    act = drv.act
+    rec = {"solve_s": wall, "timings": drv.timings, "selection": drv.selection,
+           "active": {"lo": act.lo, "hi": act.hi, "nc": act.nc, "no": act.no, "nv": act.nv},
+           "launches": kernels.launch_counts(), "mode_launches": kernels.mode_launch_counts(),
+           "e_ev": res.e_eV.tolist(), "osc": res.osc.tolist(), "ds2": res.ds2.tolist(),
+           "max_dev_ev": float(np.abs(res.e_eV - np.asarray(gs["e_ev"])).max()),
+           "max_dev_osc": float(np.abs(res.osc - np.asarray(gs["osc"])).max()),
+           "max_dev_ds2": float(np.abs(res.ds2 - np.asarray(gs["ds2"])).max())}
+    _log("phase 11 stda", json.dumps(rec))
+    _log("phase 11 stda stages (s): "
+         + ", ".join(f"{k} {v:.3f}" for k, v in drv.timings.items()))
+    failed = []
+    if rec["active"] != gs["active"]:
+        failed.append(f"active space {rec['active']} != {gs['active']}")
+    for k in ("pcsf", "final", "dim", "dim_full"):
+        if drv.selection[k] != gs[k]:
+            failed.append(f"selection {k} {drv.selection[k]} != {gs[k]}")
+    for k in ("max_dev_ev", "max_dev_osc", "max_dev_ds2"):
+        if not rec[k] <= STDA_GATE:
+            failed.append(f"{k} {rec[k]} above {STDA_GATE}")
+    if rec["launches"]["stda_coupling"] <= 0:
+        failed.append("K4 not launched")
+    if failed:
+        raise AssertionError(f"phase 11 TTM sX-TDA: {failed}")
+    out["stda"] = rec
+    return out
+
+
 def _roks_gradient(scf, mf, va, vb):
     """|g| of the Roothaan Fock of the potentials (va, vb) at mf's density,
     the SCF's own convergence measure (`scf/driver.py`)."""
@@ -1097,7 +1331,7 @@ def _solve_leg(name, run, want, golden, nroots, flops_per_build, failed, gate_ev
     res = run()
     _sync()
     wall = time.perf_counter() - s
-    launches = kernels.launch_counts()
+    launches = _df_launch_counts()
     order = np.argsort(res.e_eV)
     e = res.e_eV[order]
     dev = e - np.sort(np.asarray(want[0]))[:nroots]
@@ -1240,7 +1474,7 @@ def phase8(ref_small, rec: dict, vectors: pathlib.Path | None = None) -> dict:
     mf = scf.kernel(init=init)
     _sync()
     wall = time.perf_counter() - s
-    launches = kernels.launch_counts()
+    launches = _df_launch_counts()
     n = scf.cycles
     occ = np.asarray(ckpt["mo_occ"]) > 0
     d_e = mf.e_tot - float(ckpt["e_tot"])
@@ -1373,7 +1607,7 @@ def phase5(ref) -> dict:
         res = run()
         _sync()
         wall = time.perf_counter() - s
-        launches = kernels.launch_counts()
+        launches = _df_launch_counts()
         # the golden has near-degenerate pairs: compare sorted energies, not vectors
         order = np.argsort(res.e_eV)
         dev = float(np.abs(res.e_eV[order] - np.sort(e_ref)).max())
@@ -1429,7 +1663,7 @@ def phase6(data) -> dict:
     kernels.reset_launch_counts()
     got = op.matvec(z)
     _sync()
-    launches = kernels.launch_counts()
+    launches = _df_launch_counts()
     err, rel = rel_err(got, _plain_matvec(op, z))
     build_ms = time_ms(lambda: op.matvec(z))
     build_sa0_ms = time_ms(lambda: op_sa0.matvec(z))
@@ -1474,6 +1708,19 @@ N2_GATE_EV = 2e-3
 CH2O_XTDA_EV = (3.8634, 5.3476, 5.7484, 6.6386, 7.9075)  # example/TDA.ipynb cell 6
 CH2O_UTDA_EV = (3.9889, 5.4592, 5.8050)  # example/TDA.ipynb cell 4
 CH2O_GATE_EV = 0.02
+# sU-TDA on the UKS CH2O+ (example/sTDA.ipynb cell 2), gated as
+# tests/test_golden.py gates the JAX package: the CAS window and the P-CSF
+# counts exactly, the roots to 0.1 eV (S-CSF couplings sit within 6% of the
+# threshold and flip with the grid scheme)
+CH2O_SUTDA_EV = (4.1201, 5.2932, 5.9722)
+CH2O_SUTDA_GATE_EV = 0.1
+CH2O_SUTDA_ACTIVE = (5, 1, 9)
+CH2O_SUTDA_PCSF = {"cva": 2, "ova": 1, "cob": 3, "cvb": 2}
+# N2 TDHF/RPA (phase 11's closed-shell leg, on phase 9's N2 mean field): the
+# DF route against dense Casida (the JAX DF tests' gate, the fit error), and
+# UTDHF against the union of the singlet and triplet roots (tests/test_tdhf.py)
+N2_TDHF_DF_GATE_EV = 5e-3
+N2_UTDHF_UNION_GATE_HA = 5e-6
 INCORE_VS_DENSE_EV = 1e-6  # the same matrix, Davidson at 1e-7 against eigh
 DF_VS_INCORE_EV = 2e-3  # a DF response on an in-core mean field (tests/test_df.py:135)
 FH_E_SCF_HA = -100.038593827451  # example/'spin up.ipynb' cell 1, the aufbau 3Pi state
@@ -1650,10 +1897,12 @@ def phase9() -> dict:
     below 121 AO) and ``backend="auto"`` (dense), f64, each leg gated as
     tests/test_golden.py gates the JAX package."""
     from xtddft_tpu_torch.chem import Molecule, geometries as G
-    from xtddft_tpu_torch.methods.drivers import TDA, UTDA, XSFTDA, XTDA
+    from xtddft_tpu_torch.kernels import stda_coupling
+    from xtddft_tpu_torch.methods.drivers import TDA, TDHF, UTDA, UTDHF, XSFTDA, XTDA
     from xtddft_tpu_torch.response.reference_state import make_reference
     from xtddft_tpu_torch.scf import RKS, ROKS, UKS
     from xtddft_tpu_torch.scf.occupations import occ_from_irreps
+    from xtddft_tpu_torch.stda import STDA
 
     out = {}
     leg = _Leg("n2")
@@ -1664,6 +1913,21 @@ def phase9() -> dict:
     r = leg.solve("tda", lambda: TDA(mf, nstates=3).kernel())
     leg.gate(r.solver == "dense", "N2 TDA: not the dense route")
     leg.near("tda", r.e_eV, N2_TDA_EV, N2_GATE_EV)
+    # phase 11's closed-shell leg: TDHF/RPA on this mean field
+    rpa = {}
+    for singlet in (True, False):
+        tag = "tdhf_singlet" if singlet else "tdhf_triplet"
+        for backend in ("dense", "df"):
+            rpa[tag, backend] = leg.solve(f"{tag}_{backend}", lambda: TDHF(
+                mf, nstates=5, singlet=singlet, backend=backend).kernel())
+        leg.near(f"{tag}_df_vs_dense", rpa[tag, "df"].e_eV, rpa[tag, "dense"].e_eV,
+                 N2_TDHF_DF_GATE_EV)
+    u = leg.solve("utdhf", lambda: UTDHF(mf, nstates=8).kernel())
+    union = np.sort(np.concatenate([rpa["tdhf_singlet", "dense"].e,
+                                    rpa["tdhf_triplet", "dense"].e]))[:8]
+    leg.near("utdhf_vs_union_ha", u.e, union, N2_UTDHF_UNION_GATE_HA)
+    leg.gate(rpa["tdhf_singlet", "df"].solver == "rpa-davidson+stabcheck",
+             "N2 TDHF df: not the paired Davidson with its stability re-check")
     out["n2"] = leg.close()
     leg = _Leg("ch2o")
     mol = Molecule.from_atoms(G.ch2o_vacuum, basis="cc-pvdz", charge=1, spin=1)
@@ -1680,6 +1944,16 @@ def phase9() -> dict:
     mfu = leg.scf("uks", UKS(mol, xc="b3lyp", env=scf.env))
     r = leg.solve("utda", lambda: UTDA(mfu, nstates=3).kernel())
     leg.near("utda", r.e_eV, CH2O_UTDA_EV, CH2O_GATE_EV)
+    st = STDA(mfu, spinadapt=False, nstates=3, select_with_fock=False)
+    r = leg.solve("sutda", st.kernel)
+    leg.near("sutda", r.e_eV, CH2O_SUTDA_EV, CH2O_SUTDA_GATE_EV)
+    leg.rec["sutda"].update(active=(st.act.nc, st.act.no, st.act.nv),
+                            pcsf=st.selection["pcsf"], timings=st.timings)
+    leg.gate((st.act.nc, st.act.no, st.act.nv) == CH2O_SUTDA_ACTIVE,
+             f"CH2O+ sU-TDA active space {(st.act.nc, st.act.no, st.act.nv)}")
+    leg.gate(st.selection["pcsf"] == CH2O_SUTDA_PCSF,
+             f"CH2O+ sU-TDA P-CSF counts {st.selection['pcsf']}")
+    leg.gate(stda_coupling.launches > 0, "CH2O+ sU-TDA: K4 not launched")
     out["ch2o"] = leg.close(sigma_ms=lambda: _incore_sigma_ms(make_reference(mf)))
     leg = _Leg("fh")
     mol = Molecule.from_atoms(G.fh, basis="6-31g", spin=2)
@@ -1740,7 +2014,7 @@ def phase9() -> dict:
 
 
 def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
-    """Phases 0-9 into ``record``, in the order that lets the later ones
+    """Phases 0-11 into ``record``, in the order that lets the later ones
     reuse what the earlier built; the seconds since the start after each."""
     def done(name):
         _log(f"{name} done at {time.perf_counter() - t_start:.1f} s")
@@ -1760,6 +2034,8 @@ def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
     done("phase 7")
     record["functionals"] = phase10(ref.mf.env)
     done("phase 10")
+    record["tdhf"] = phase11(ref, record["ttm"]["e_ev"])
+    done("phase 11")
     vectors = None if out is None else pathlib.Path(out).with_name(
         pathlib.Path(out).stem + "_dzp_vectors.npz")
     if vectors is not None:
@@ -1798,7 +2074,8 @@ def main(argv=None) -> int:
     from xtddft_tpu_torch import kernels
 
     entries = []
-    for m in kernels.MODULES:
+    checks = record["kernels"]["checks"]
+    for m in kernels.DF_MODULES:
         # the main path's own shape: TTM, f64, alpha block; K2 and K3 on a jvp
         # group's span
         main_check = [c for c in record["kernels"]["checks"]
@@ -1818,7 +2095,8 @@ def main(argv=None) -> int:
         # the production shapes, f64: the dzp X-TDA alpha block (K2 and K3 on
         # a jvp group's span) and the dzp SCF's AO mode
         dzp_check = [c for c in record["kernels"]["checks"]
-                     if c["kernel"] == m.NAME and c["shape"] == "dzp" and c.get("spin") == "a"][-1]
+                     if c["kernel"] == m.NAME and c["shape"] == "dzp" and c.get("spin") == "a"
+                     and "mode" not in c][-1]
         dzp_ao_check = [c for c in record["kernels"]["checks"]
                         if c["kernel"] == m.NAME and c["shape"] == "dzp_ao"
                         and c["mode"] in ("ao", "hermi")][0]
@@ -1887,7 +2165,42 @@ def main(argv=None) -> int:
                 f"{xc}_{leg}": {k: v for k, v in (r if leg == "scf" else r[leg])[
                     "mode_launches"].items() if k.startswith(m.NAME + ".")}
                 for xc, r in fn.items() for leg in ("scf", "xtda", "xsf")},
+            # phase 11: the TTM X-TDHF solve
+            "launches_xtdhf": record["tdhf"]["xtdhf"]["launches"][m.NAME],
         })
+    # K1's RPA exchange mode (phase 11's B half), at the TTM alpha block
+    # (nz 20, f64), the bench block (f32) and TTM/dzp's alpha block (f64)
+    k1_entry = entries[0]
+    k1_entry["launches_rpa_exchange"] = record["tdhf"]["xtdhf"]["mode_launches"][
+        "df_exchange.rpa_exchange"]
+    for prefix, shape, dname in (("rpa_", "ttm", "float64"), ("rpa_bench_", "bench", "float32"),
+                                 ("rpa_dzp_", "dzp", "float64")):
+        c = [c for c in checks if c["kernel"] == "df_exchange" and c.get("mode") == "rpa_exchange"
+             and c["shape"] == shape and c["dtype"] == dname and c["spin"] == "a"][0]
+        k1_entry.update({f"{prefix}{k}": c[k] for k in ("order", "max_abs_err", "ms",
+                                                          "plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")})
+    # K4: the main path's own shape is the final A's alpha block of TTM's
+    # sX-TDA (phase 11); the selection's coupling block and the diagonal beside
+    from xtddft_tpu_torch.kernels import stda_coupling as k4
+
+    def k4_check(shape):
+        return [c for c in checks if c["kernel"] == k4.NAME and c["shape"] == shape
+                and c["spin"] == "a"][0]
+
+    main_check = k4_check("ttm_stda_final")
+    entries.append({
+        "name": k4.NAME, "route": k4.ROUTE, "source": k4.SOURCE, "replaces": k4.REPLACES,
+        "launches": record["tdhf"]["stda"]["launches"][k4.NAME],
+        "launches_diagonal": record["tdhf"]["stda"]["mode_launches"][f"{k4.NAME}.diagonal"],
+        **{k: main_check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+        **{f"selection_{k}": k4_check("ttm_stda_selection")[k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        **{f"diagonal_{k}": k4_check("ttm_stda_diagonal")[k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "launches_ch2o_sutda": record["small"]["ch2o"]["launches"][k4.NAME],
+    })
     record["total_s"] = time.perf_counter() - t_start
     _log("total seconds", record["total_s"])
     if args.out:

@@ -47,6 +47,14 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.response.dense",
     "xtddft_tpu_torch.response.sigma_xsf",
     "xtddft_tpu_torch.solver.davidson",
+    "xtddft_tpu_torch.solver.rpa",
+    "xtddft_tpu_torch.response.tdhf",
+    "xtddft_tpu_torch.stda",
+    "xtddft_tpu_torch.stda.hardness",
+    "xtddft_tpu_torch.stda.core",
+    "xtddft_tpu_torch.stda.driver",
+    "xtddft_tpu_torch.stda.diagnostics",
+    "xtddft_tpu_torch.kernels.stda_coupling",
     "xtddft_tpu_torch.props.oscillator",
     "xtddft_tpu_torch.props.spin",
     "xtddft_tpu_torch.props.irreps",

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3, every mode, against their plain torch versions, on a GPU.
+"""The CUDA kernels K1-K4, every mode, against their plain torch versions, on a GPU.
 
 f64 to relative 1e-11 and f32 to 1e-4 of the largest entry (the summation
 order differs); the SCF's fixed-order modes also repeat bitwise.  Skips without a card.  The machine with the card has no
@@ -15,6 +15,7 @@ import torch
 from xtddft_tpu_torch.kernels import df_exchange as k1
 from xtddft_tpu_torch.kernels import grid_back as k3
 from xtddft_tpu_torch.kernels import grid_rho1 as k2
+from xtddft_tpu_torch.kernels import stda_coupling as k4
 
 # (naux, nmo, nocc, nz, gc), nvir = nmo - nocc
 SHAPES = {
@@ -403,7 +404,10 @@ def test_scf_on_the_card_matches_the_cpu(cuda):
     assert got.converged and want.converged
     assert abs(got.e_tot - want.e_tot) <= 1e-9
     np.testing.assert_allclose(got.mo_energy, want.mo_energy, rtol=0, atol=1e-7)
-    assert kernels.launch_counts() == {n: scf.cycles for n in kernels.launch_counts()}
+    counts = kernels.launch_counts()
+    assert {m.NAME: counts[m.NAME] for m in kernels.DF_MODULES} == {
+        m.NAME: scf.cycles for m in kernels.DF_MODULES}
+    assert counts["stda_coupling"] == 0
 
 
 @pytest.mark.cuda
@@ -419,6 +423,73 @@ def test_cuda_wrappers_refuse_empty_extents(cuda):
     with pytest.raises(ValueError):
         k3.grid_back(torch.zeros((2, 8), device=cuda, dtype=torch.float64), None, phi, 0, 3,
                      torch.zeros((2, 0, 3), device=cuda, dtype=torch.float64))
+
+
+# the RPA exchange: (naux, nmo, o0, nocc, v0, nvir, nz)
+RPA_SHAPES = {
+    "ttm_a": (4412, 182, 0, 137, 137, 45, 20),  # nvir < nocc: the JAX order
+    "ttm_b": (4412, 182, 0, 136, 136, 46, 20),
+    "square": (96, 80, 0, 40, 40, 40, 3),  # nocc = nvir
+    "nz1": (96, 120, 0, 30, 30, 90, 1),  # one vector, nocc < nvir
+    "nocc300": (48, 340, 0, 300, 300, 40, 2),
+    "nvir300": (48, 340, 0, 40, 40, 300, 2),
+    "ragged": (257, 77, 3, 21, 29, 45, 3),  # offsets off a run, odd naux
+    "bench": (2000, 1000, 0, 80, 80, 920, 20),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(RPA_SHAPES.values()), ids=list(RPA_SHAPES))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11), (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_rpa_exchange_matches_plain(cuda, shape, dtype, rtol):
+    """K1's RPA exchange in the order the shape picks, against the plain
+    version, aux-chunked (a chunk of 64 and the default), and repeating
+    bitwise."""
+    naux, nmo, o0, nocc, v0, nvir, nz = shape
+    g = torch.Generator(cuda).manual_seed(1)
+    B = torch.randn((naux, nmo, nmo), generator=g, device=cuda, dtype=dtype)
+    B = (B + B.transpose(1, 2)).mul_(0.5)
+    z = torch.randn((nz, nocc, nvir), generator=g, device=cuda, dtype=dtype)
+    before = k1.mode_launches["rpa_exchange"]
+    for chunk in (64, None):
+        v = k1.rpa_exchange(B, z, o0, v0, chunk)
+        _rel_close(v, k1.rpa_exchange_plain(B, z, o0, v0, chunk), rtol)
+        assert torch.equal(v, k1.rpa_exchange(B, z, o0, v0, chunk))
+    assert k1.mode_launches["rpa_exchange"] == before + 4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_stda_coupling_edges(cuda, dtype, rtol):
+    """K4 against its plain version: TTM-like tables with a full block, one
+    row, repeated indices, and the diagonal; an empty list launches
+    nothing."""
+    rng = np.random.default_rng(3)
+    natm, nocc, nvir = 34, 73, 46
+    g = torch.as_tensor(rng.normal(size=(natm, nocc, nocc)), dtype=dtype, device=cuda)
+    qv = torch.as_tensor(rng.normal(size=(natm, nvir, nvir)), dtype=dtype, device=cuda)
+    lists = {
+        "block": (rng.integers(0, nocc, 300), rng.integers(0, nvir, 300),
+                  rng.integers(0, nocc, 1000), rng.integers(0, nvir, 1000)),
+        "one_row": (np.array([5]), np.array([7]), rng.integers(0, nocc, 77),
+                    rng.integers(0, nvir, 77)),
+        "repeated": (np.full(40, 3), np.full(40, 2), np.full(33, 3), np.full(33, 2)),
+    }
+    for o_r, v_r, o_c, v_c in lists.values():
+        J = k4.j_block(g, qv, o_r, v_r, o_c, v_c)
+        _rel_close(J, k4.j_block_plain(g, qv, o_r, v_r, o_c, v_c), rtol)
+        assert torch.equal(J, k4.j_block(g, qv, o_r, v_r, o_c, v_c))
+        d = k4.j_diagonal(g, qv, o_r, v_r)
+        _rel_close(d, k4.j_diagonal_plain(g, qv, o_r, v_r), rtol)
+    before = k4.launches
+    empty = np.zeros(0, dtype=np.int64)
+    assert k4.j_block(g, qv, empty, empty, *lists["block"][2:]).shape == (0, 1000)
+    assert k4.j_diagonal(g, qv, empty, empty).shape == (0,)
+    assert k4.launches == before
+    torch.cuda.synchronize()
 
 
 def test_cpu_tensors_take_the_plain_version():

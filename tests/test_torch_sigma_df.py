@@ -119,9 +119,8 @@ def test_matvec_point_spans(ops, monkeypatch, chunk, jvp_points):
 def test_options_not_ported_raise():
     data = sigma_df.synthetic_df_data(nmo=12, nc=3, no=1, naux=8, ngrid=64,
                                       device="cpu", dtype=torch.float64)
-    for kw in ({"spmd": True}, {"with_b": True}):
-        with pytest.raises(NotImplementedError):
-            sigma_df.xtda_sigma_df(data, **kw)
+    with pytest.raises(NotImplementedError):
+        sigma_df.xtda_sigma_df(data, spmd=True)
     with pytest.raises(NotImplementedError):
         sigma_df.xtda_sigma_df(dataclasses.replace(data, packed=True))
 

@@ -5,18 +5,25 @@
 | `df_exchange` | `response/sigma_df.py:399` `_jk`, `:821`/`:1066` the flip `_k` | `df_exchange` | two GEMMs on the tile core (`csrc/gemm_tile.cuh`) through an aux-chunked T buffer, plus a t reduction (skipped in the exchange-only flip mode; the virtual panel may come from a second tensor) |
 | `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1`, `:857`/`:1105` the flip transition density | `grid_rho1`   | the two GEMMs of the GGA minimum (tmp = z pv_0, u = z^T po_0) on the tile core, each contracted with the MO table in a tile epilogue, one launch per point span; four components or the value alone (one GEMM: the one of fewer rows); the meta-GGA tau row as three more GEMMs z pv_y dotted with po_y; second table likewise |
 | `grid_back`   | `response/sigma_df.py:525` `_fxc.back`, `:861`/`:1113` the flip back-projection | `grid_back`   | one GEMM on the tile core, F formed in shared memory, one launch per point span; four components or the value alone; the meta-GGA tau term as a fifth weight row in F; second table likewise |
+| `stda_coupling` | `stda/core.py:294` `_j_block`, `:323` the Coulomb diagonal of `csf_diagonal` | `stda_coupling` | a tile of J per block, its index lists in shared memory, the two small tables read in place (no gathered copies); the diagonal as a flat loop |
+
+`df_exchange` also runs the RPA exchange of a TDHF sigma's B half
+(`sigma_df.py:459` `_k2`): the same two GEMMs on other row and column
+ranges of B, in the cheaper of two contraction orders.
 
 The tile core runs f64 on the DMMA tensor cores (`mma.sync` m16n8k8) and
 f32 as register-tiled FMA, with `cp.async` staging.  Every wrapper runs its
 plain torch version on CPU tensors, launches its kernel on CUDA tensors (or
 raises), and counts its launches in the module's ``launches`` integer, and
-those of its exchange-only (K1) or meta-GGA tau (K2, K3) mode also in
-``mode_launches``.
+those of its exchange-only or RPA exchange (K1), meta-GGA tau (K2, K3) or
+diagonal (K4) mode also in ``mode_launches``.
 """
 
-from xtddft_tpu_torch.kernels import df_exchange, grid_back, grid_rho1
+from xtddft_tpu_torch.kernels import df_exchange, grid_back, grid_rho1, stda_coupling
 
-MODULES = (df_exchange, grid_rho1, grid_back)
+MODULES = (df_exchange, grid_rho1, grid_back, stda_coupling)
+# the kernels of every DF sigma build and DF Fock build (K4 runs in sTDA alone)
+DF_MODULES = (df_exchange, grid_rho1, grid_back)
 
 
 def launch_counts() -> dict[str, int]:
@@ -25,7 +32,8 @@ def launch_counts() -> dict[str, int]:
 
 def mode_launch_counts() -> dict[str, int]:
     """The launches of the modes each wrapper counts apart, as
-    "<kernel>.<mode>": K1's exchange-only mode, K2's tau row, K3's tau term."""
+    "<kernel>.<mode>": K1's exchange-only and RPA exchange modes, K2's tau
+    row, K3's tau term, K4's diagonal."""
     return {f"{m.NAME}.{k}": n for m in MODULES for k, n in m.mode_launches.items()}
 
 
@@ -48,5 +56,5 @@ def build_all() -> None:
             f.result()
 
 
-__all__ = ["MODULES", "launch_counts", "mode_launch_counts", "reset_launch_counts",
+__all__ = ["MODULES", "DF_MODULES", "launch_counts", "mode_launch_counts", "reset_launch_counts",
            "build_all"]

@@ -7,6 +7,9 @@ Counterpart of the JAX package's `methods/drivers.py`:
 - XTDA    spin-adapted X-TDA on a ROKS/ROHF reference
 - SFTDA   spin-flip TDA, extype 'up' (Sf = Si + 1) or 'down' (Sf = Si - 1)
 - XSFTDA  spin-adapted spin-flip-down XSF-TDA (arXiv:2511.16906)
+- TDHF    closed-shell full TDHF/RPA, singlet or triplet
+- UTDHF   unrestricted full TDHF/RPA, blocked layout
+- XTDHF   spin-adapted X-TDHF/RPA on a ROKS/ROHF reference
 
 XTDA, SFTDA and XSFTDA take ``backend``: 'dense' (the full matrix on the
 Env's device and ``torch.linalg.eigh`` there, f64), 'incore' (the in-core
@@ -14,6 +17,8 @@ sigma operators and the block Davidson at the JAX host solver's tolerance,
 1e-7), 'df' (the density-fitted sigma and the block Davidson), or 'auto'
 (the default): DF above 120 AOs or a dimension of 4000, dense below, as in
 the JAX package.  ``ExcitationResult.solver`` names the route taken.
+The TDHF drivers take 'df' (the paired DF sigma and the paired Davidson,
+then the stability re-check) or anything else for the dense Casida solve.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 
 from xtddft_tpu_torch import units
 from xtddft_tpu_torch.props import oscillator, spin
-from xtddft_tpu_torch.response import dense
+from xtddft_tpu_torch.response import dense, tdhf
 from xtddft_tpu_torch.response.reference_state import Reference, make_reference
 from xtddft_tpu_torch.response.spaces import so2st
 from xtddft_tpu_torch.scf.driver import MeanField
@@ -48,6 +53,7 @@ class ExcitationResult:
     irreps: list | None = None  # Mulliken labels (with symmetry=True)
     solver: str | None = None  # which eigensolver path produced e/v
     cycles: int | None = None  # Davidson cycles of the solve
+    v_xmy: np.ndarray | None = None  # (X-Y) of full TDHF/RPA (v is X+Y)
 
     @property
     def e_eV(self) -> np.ndarray:
@@ -142,6 +148,60 @@ def _df_solve(build_data, make_op, nroots: int, pick_positive: bool = False):
         tol=None, pick_positive=pick_positive, device=op.device, dtype=op.dtype,
     )
     return e, vv, conv, op, "davidson", info
+
+
+def _df_rpa_solve(op, nroots: int, pick_positive: bool = True):
+    """The DF TDHF/RPA solve on the paired operator ``op``
+    (`sigma_df.xtda_sigma_df(with_b=True)`): the paired Davidson in the
+    operator's dtype at tol 1e-7, then the stability re-check, one
+    Rayleigh-Ritz over `_pencil_probe_basis`, which raises
+    `RPAInstabilityError` where the projected A - B is not positive definite
+    (an externally unstable reference).
+
+    The re-check's Ritz values are not taken (the JAX package's CPU path
+    takes them): where A + B has a slightly negative direction, which
+    Casida's clamp drops, the probe space mixes it into a spurious low root
+    (FH/6-31G ROKS/BHandHLYP on DF: 0.135 eV below the pencil's 2.742 eV;
+    `tools/jax_tdhf_fault.py`).  Returns (w, xpy, xmy, conv, label, info)."""
+    from xtddft_tpu_torch.solver.rpa import rpa_davidson, rpa_rayleigh_ritz
+
+    nroots = min(nroots, op.dim)
+    w, xpy, xmy, conv, info = rpa_davidson(
+        op.matvec, op.hdiag, nroots=nroots, init_guess=op.init_guess(nroots), tol=1e-7,
+        pick_positive=pick_positive, device=op.device, dtype=op.dtype)
+    if xpy.size:
+        rpa_rayleigh_ritz(op.matvec, _pencil_probe_basis(xpy, xmy, op.hdiag, nroots), nroots,
+                          pos_threshold=1e-6 if pick_positive else 0.0,
+                          device=op.device, dtype=op.dtype)
+    return w, xpy, xmy, conv, "rpa-davidson+stabcheck", info
+
+
+def _pencil_probe_basis(xpy, xmy, hdiag, nroots: int) -> np.ndarray:
+    """Orthonormal host basis of the stability re-check: span(X+Y, X-Y) and
+    the max(2 nroots, 8) lowest-gap Koopmans directions, where instabilities
+    live (JAX `methods/drivers.py:291`).  Non-finite columns are zeroed and
+    the Koopmans directions lead, so that the re-check raises on an unstable
+    reference instead of failing in eigh."""
+    dim = xpy.shape[0]
+    nseed = min(max(2 * nroots, 8), dim)
+    seed = np.zeros((dim, nseed))
+    seed[np.argsort(np.asarray(hdiag))[:nseed], np.arange(nseed)] = 1.0
+    W = np.concatenate([xpy, xmy], axis=1).astype(np.float64)
+    if np.isfinite(W).all():
+        Q, R = np.linalg.qr(np.concatenate([W, seed], axis=1))
+    else:
+        W = np.where(np.isfinite(W), W, 0.0)
+        norms = np.linalg.norm(W, axis=0)
+        good = norms > 1e-12 * max(1.0, float(norms.max()))
+        Q, R = np.linalg.qr(np.concatenate([seed, W[:, good] / norms[good][None, :]], axis=1))
+    keep = np.abs(np.diag(R)) > 1e-10
+    return Q[:, keep[: Q.shape[1]]]
+
+
+def _paired_df_op(ref: Reference, spin_adapt: bool):
+    from xtddft_tpu_torch.response.sigma_df import build_df_data, xtda_sigma_df
+
+    return xtda_sigma_df(build_df_data(ref), spin_adapt=spin_adapt, with_b=True)
 
 
 class TDA:
@@ -413,3 +473,113 @@ class XSFTDA:
             irreps, _ = state_irreps(ref, v_full, kind="spin_flip")
         return ExcitationResult(e=e, v=v_full, ds2=ds2, converged=converged,
                                 irreps=irreps, solver=backend, cycles=cycles)
+
+
+class TDHF:
+    """Closed-shell full TDHF/RPA on an RHF/RKS reference, singlet or triplet.
+
+    Result: v = X+Y and v_xmy = X-Y with <X+Y|X-Y> = 1, length-gauge
+    oscillator strengths from X+Y and velocity-gauge rotatory strengths from
+    X-Y.  backend 'df' solves the spin-resolved DF pencil with 2 nstates + 2
+    roots and keeps the roots symmetric (singlet) or antisymmetric (triplet)
+    in (za, zb), with the closed-shell amplitude sqrt(2) za; where fewer than
+    ``nstates`` of that parity come out, the solve is widened (doubled) until
+    they do or the whole space is solved.  Any other backend: dense Casida."""
+
+    def __init__(self, mf, nstates: int = 5, singlet: bool = True, backend: str = "auto"):
+        self.ref = _ref_of(mf)
+        self.nstates = nstates
+        self.singlet = singlet
+        self.backend = backend
+        if self.ref.no != 0:
+            raise ValueError(
+                "TDHF requires a closed-shell (RKS/RHF) reference; use UTDHF "
+                "for open-shell systems")
+
+    def kernel(self) -> ExcitationResult:
+        ref = self.ref
+        backend = _resolve_backend(ref, self.backend, 2 * ref.nc * ref.nv)
+        if backend == "df":
+            op = _paired_df_op(ref, spin_adapt=False)
+            na = ref.nc * ref.nv
+            nroots = min(2 * self.nstates + 2, op.dim)
+            while True:
+                w, xpy, xmy, conv, label, info = _df_rpa_solve(op, nroots)
+                za, zb = xpy[:na], xpy[na:]
+                num = np.einsum("ds,ds->s", za, zb)
+                den = np.linalg.norm(za, axis=0) * np.linalg.norm(zb, axis=0) + 1e-300
+                sel = (num / den > 0) if self.singlet else (num / den < 0)
+                idx = np.where(sel)[0][: self.nstates]
+                if idx.size >= self.nstates or nroots >= op.dim:
+                    break
+                nroots = min(2 * nroots, op.dim)
+            e = w[idx]
+            xpy_cs = math.sqrt(2.0) * za[:, idx]
+            xmy_cs = math.sqrt(2.0) * xmy[:na, idx]
+            converged, cycles = bool(np.all(conv)), info["cycles"]
+        else:
+            e, xpy_cs, xmy_cs = tdhf.solve_casida(*tdhf.rtdhf_dense(ref, self.singlet),
+                                                  self.nstates)
+            converged, label, cycles = True, "dense-casida", None
+        if self.singlet:
+            osc = oscillator.closed_shell_osc(ref, e, xpy_cs)
+            rot = oscillator.closed_shell_rot(ref, e, xmy_cs)
+        else:
+            osc = np.zeros(e.shape[0])
+            rot = np.zeros(e.shape[0])
+        return ExcitationResult(e=e, v=xpy_cs, osc=osc, rot=rot, v_xmy=xmy_cs,
+                                converged=converged, solver=label, cycles=cycles)
+
+
+class _PairedBase:
+    """UTDHF and XTDHF: the blocked pencil, by dense Casida on ``_dense``'s
+    (A, B) or by the DF solve, and <dS^2> by ``_ds2``."""
+
+    spin_adapt = False
+    _dense = staticmethod(tdhf.utdhf_dense)
+    _ds2 = staticmethod(spin.utda_delta_s2)
+
+    def __init__(self, mf, nstates: int = 5, backend: str = "auto"):
+        self.ref = _ref_of(mf)
+        self.nstates = nstates
+        self.backend = backend
+
+    def kernel(self) -> ExcitationResult:
+        ref = self.ref
+        dim = (ref.nc + ref.no) * ref.nv + ref.nc * (ref.no + ref.nv)
+        backend = _resolve_backend(ref, self.backend, dim)
+        cycles = None
+        if backend == "df":
+            op = _paired_df_op(ref, spin_adapt=self.spin_adapt)
+            e, xpy_n, xmy_n, conv, label, info = _df_rpa_solve(op, self.nstates)
+            xpy, xmy = op.to_blocked(xpy_n), op.to_blocked(xmy_n)
+            converged, cycles = bool(np.all(conv)), info["cycles"]
+        else:
+            e, xpy, xmy = tdhf.solve_casida(*self._dense(ref), self.nstates)
+            converged, label = True, "dense-casida"
+        return ExcitationResult(
+            e=e, v=xpy,
+            osc=oscillator.spin_conserving_osc(ref, e, xpy),
+            rot=oscillator.spin_conserving_rot(ref, e, xmy),
+            ds2=self._ds2(ref, xpy), v_xmy=xmy, converged=converged, solver=label,
+            cycles=cycles)
+
+
+class UTDHF(_PairedBase):
+    """Unrestricted full TDHF/RPA in the blocked CV(a)|OV(a)|CO(b)|CV(b)
+    layout; backend 'df' is the matrix-free path (the module docstring)."""
+
+
+class XTDHF(_PairedBase):
+    """Spin-adapted X-TDHF/RPA on a restricted-open reference: A is the
+    spin-adapted X-TDA matrix, B the bare RPA coupling on the X space
+    (`response/tdhf.xtdhf_dense`; B has no dA analog)."""
+
+    spin_adapt = True
+    _dense = staticmethod(tdhf.xtdhf_dense)
+    _ds2 = staticmethod(spin.xtda_delta_s2)
+
+    def __init__(self, mf, nstates: int = 5, backend: str = "auto"):
+        super().__init__(mf, nstates, backend)
+        if not self.ref.restricted_open:
+            raise ValueError("XTDHF requires a ROKS/ROHF reference")

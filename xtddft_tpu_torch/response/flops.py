@@ -16,7 +16,7 @@ PEAK_FLOPS = {"float64": 67e12,  # f64 on the tensor cores (DMMA)
 HBM_BYTES_PER_S = 3.35e12
 
 
-def matvec_flops(nc, no, nv, naux, ngrid, nb, hyb_terms=1, tau=False):
+def matvec_flops(nc, no, nv, naux, ngrid, nb, hyb_terms=1, tau=False, with_b=False):
     """Analytic flop count of one blocked DF X-TDA sigma build (nb vectors).
 
     Counted per einsum of the DF sigma (2 flops per multiply-add).  The
@@ -24,7 +24,9 @@ def matvec_flops(nc, no, nv, naux, ngrid, nb, hyb_terms=1, tau=False):
     T[x,P,j,a] = B[P,ab] z[x,jb]: 2*naux*nocc*nvir^2*nb per spin block.
     hyb_terms: 1, +1 more if an RSH long-range B adds a second K pass (2:
     CAM-B3LYP).  tau: a meta-GGA's fifth grid component (the tau row and
-    term), counted like the other four.
+    term), counted like the other four.  with_b: the paired (A z, B z)
+    build of TDHF/RPA, whose B half adds one RPA exchange per spin and
+    K pass (``rpa_exchange_flops``); its Coulomb and fxc terms are A's.
     """
     na_o, na_v = nc + no, nv          # alpha occ/vir
     nb_o, nb_v = nc, no + nv          # beta occ/vir
@@ -35,6 +37,8 @@ def matvec_flops(nc, no, nv, naux, ngrid, nb, hyb_terms=1, tau=False):
         K = 2.0 * naux * o * o * v * nb        # K = B_oo . T
         back = 2.0 * naux * o * v * nb         # v1 += B_ov . t
         jk += t + back + hyb_terms * (T + K)
+        if with_b:
+            jk += hyb_terms * rpa_exchange_flops(naux, nb, o, v)
     fxc = 0.0
     ncomp = 5 if tau else 4
     for o, v in ((na_o, na_v), (nb_o, nb_v)):
@@ -71,6 +75,31 @@ def df_exchange_bytes(naux, nz, nocc, nvir, itemsize, with_t=True):
         reads += naux * nocc * nvir
         writes += nz * naux
     return float(itemsize) * (reads + writes)
+
+
+def rpa_exchange_flops(naux, nz, nocc, nvir):
+    """K1's RPA exchange in the cheaper order: two GEMMs of
+    2*naux*nz*nocc*nvir*min(nocc, nvir) each."""
+    return 4.0 * naux * nz * nocc * nvir * min(nocc, nvir)
+
+
+def rpa_exchange_bytes(naux, nz, nocc, nvir, itemsize):
+    """K1's RPA exchange: the ov block of B and z read, v written."""
+    return float(itemsize) * (naux * nocc * nvir + 2 * nz * nocc * nvir)
+
+
+def stda_j_flops(nrow, ncol, natm):
+    """K4: a multiply and an add per atom for each element of J."""
+    return 2.0 * nrow * ncol * natm
+
+
+def stda_j_bytes(nrow, ncol, natm, nocc, nvir, itemsize, diagonal=False):
+    """K4: the two tables (natm x nocc^2 and natm x nvir^2) and the four
+    int32 index lists read once, J written (nrow elements on the diagonal)."""
+    tables = natm * (nocc * nocc + nvir * nvir) * itemsize
+    if diagonal:
+        return float(tables + 2 * 4 * nrow + itemsize * nrow)
+    return float(tables + 2 * 4 * (nrow + ncol) + itemsize * nrow * ncol)
 
 
 def grid_back_flops(nz, nocc, nvir, npts, ncomp=4):

@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from xtddft_tpu_torch.kernels.df_exchange import df_exchange
+from xtddft_tpu_torch.kernels.df_exchange import df_exchange, rpa_exchange
 from xtddft_tpu_torch.kernels.grid_back import grid_back
 from xtddft_tpu_torch.kernels.grid_rho1 import MAX_POINTS as K2_MAX_POINTS
 from xtddft_tpu_torch.kernels.grid_rho1 import grid_rho1
@@ -278,10 +278,14 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     pass per spin, JAX `:580-588`), the Fock terms, the spin-adaptation dA
     terms, and fxc through the MO-grid factorization in grid chunks of 4096
     points (zero-weight padded; a meta-GGA's tau row and term included).
-    matvec takes and returns (nz, dim) tensors on B's device in B's dtype."""
-    if with_b:
-        raise NotImplementedError(
-            "with_b (RPA B matvec): not ported yet (ROADMAP queue 1, item 10)")
+    matvec takes and returns (nz, dim) tensors on B's device in B's dtype.
+
+    with_b: the paired operator of TDHF/RPA (JAX `:594-603`, `:637-644`):
+    matvec returns the stacked (2, nz, dim) [A z, B z], where B z is the
+    Coulomb back-projection and fxc term of A z, minus hyb times K1's RPA
+    exchange on B (and hyb_lr times that on B_lr), with no Fock and no dA
+    term.  The A half is the ``with_b=False`` matvec, launch for launch;
+    the RPA launches follow it."""
     _refuse_unported(data, spmd, packed_row="7")
     nc, no, nv = data.nc, data.no, data.nv
     nmo = data.nmo
@@ -385,12 +389,15 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         ta, Ka = df_exchange(B, za, 0, nocca)
         tb, Kb = df_exchange(Bb, zb, 0, noccb)
         t = ta + tb
-        v1a = (t @ bov_a).reshape(nz, nocca, nvira) - hyb * Ka
-        v1b = (t @ bov_b).reshape(nz, noccb, nvirb) - hyb * Kb
+        ja = (t @ bov_a).reshape(nz, nocca, nvira)
+        jb = (t @ bov_b).reshape(nz, noccb, nvirb)
+        v1a = ja - hyb * Ka
+        v1b = jb - hyb * Kb
         if has_lr:
             # the RSH long-range exchange, (alpha - hyb) K over B_lr
             v1a = v1a - data.hyb_lr * df_exchange(B_lr, za, 0, nocca, with_t=False)[1]
             v1b = v1b - data.hyb_lr * df_exchange(Bb_lr, zb, 0, noccb, with_t=False)[1]
+        fxa = fxb = None
         if has_xc:
             fxa, fxb = _fxc(za, zb)
             v1a = v1a + fxa
@@ -406,7 +413,24 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
             cross_a = fx * (zac @ dFV.T + dFC @ zac)
             v1a[:, :noccb, :] += coup_a - cross_b
             v1b[:, :, -nvira:] += coup_b - cross_a
-        return torch.cat([v1a.reshape(nz, -1), v1b.reshape(nz, -1)], dim=1)
+        az = torch.cat([v1a.reshape(nz, -1), v1b.reshape(nz, -1)], dim=1)
+        if not with_b:
+            return az
+        return torch.stack([az, _b_half(za, zb, ja, jb, fxa, fxb)])
+
+    def _b_half(za, zb, ja, jb, fxa, fxb):
+        """B z from A's Coulomb (ja, jb) and fxc (fxa, fxb) terms: the RPA
+        exchange (ib|ja) z_jb in place of K, no Fock and no dA term."""
+        b1a = ja - hyb * rpa_exchange(B, za, 0, nocca)
+        b1b = jb - hyb * rpa_exchange(Bb, zb, 0, noccb)
+        if has_lr:
+            b1a = b1a - data.hyb_lr * rpa_exchange(B_lr, za, 0, nocca)
+            b1b = b1b - data.hyb_lr * rpa_exchange(Bb_lr, zb, 0, noccb)
+        if fxa is not None:
+            b1a = b1a + fxa
+            b1b = b1b + fxb
+        nz = za.shape[0]
+        return torch.cat([b1a.reshape(nz, -1), b1b.reshape(nz, -1)], dim=1)
 
     ea = np.diag(data.fock_mo[0])
     eb = np.diag(data.fock_mo[1])
@@ -416,10 +440,11 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     ])
 
     def to_blocked(v):
+        rest = v.shape[1:]  # explicit: a closed shell's CO block is empty
         top = v[:na]
-        beta = v[na:].reshape(noccb, nvirb, -1)
-        co = beta[:, :no].reshape(noccb * no, -1)
-        cv = beta[:, no:].reshape(noccb * nv, -1)
+        beta = v[na:].reshape(noccb, nvirb, *rest)
+        co = beta[:, :no].reshape(noccb * no, *rest)
+        cv = beta[:, no:].reshape(noccb * nv, *rest)
         return np.concatenate([top, co, cv], axis=0)
 
     return SigmaOperator(matvec=matvec, hdiag=hdiag, dim=dim, _to_blocked=to_blocked,
