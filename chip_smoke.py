@@ -110,8 +110,9 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    re-check) gated against ``tests/data/golden_ttm_xtdhf.json`` (roots within
    1e-4 eV, |osc| within 1e-4, <dS^2> within 1e-3, the pencil's residuals
    from fresh matvecs within 1e-6, the RPA mode launched in every pair
-   build), with its cycles, pair builds and seconds and the Thouless
-   comparison with phase 3's X-TDA roots (printed, not gated); then
+   build), with its cycles, pair builds and seconds, the one-off seconds of
+   the aligned ov copies its operator made (``rpa_aligned_s``), and the
+   Thouless comparison with phase 3's X-TDA roots (printed, not gated); then
    ``STDA(nstates=10)`` (sX-TDA, its Coulomb blocks on K4) gated against
    ``golden_ttm_stda.json`` (the active space and the selected counts per
    block exactly, roots, osc and <dS^2> within 1e-6), with the seconds of
@@ -121,10 +122,13 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    Ha); phase 9's CH2O+ leg also runs ``STDA(spinadapt=False)`` (sU-TDA),
    gated as tests/test_golden.py gates the JAX package.  Phase 2 holds K1's
    RPA mode (both contraction orders: TTM's blocks, f64 and f32, and the
-   bench's and TTM/dzp's alpha blocks, 20 vectors; ``library_ms`` the single
-   einsum over the ov block) and K4 (TTM's selection and final-A blocks and
-   the diagonal, f64; ``library_ms`` the single einsum over gathered
-   tables) against their plain versions.  Phase 11 runs after phase 10.
+   bench's and TTM/dzp's alpha blocks, 20 vectors, on the aligned ov copy,
+   whose own time is ``aligned_ms``; ``library_ms`` the single einsum over
+   the ov block) and K4 (TTM's selection and final-A blocks and the
+   diagonal, f64, on device index lists; ``kernel_ms`` the kernel alone,
+   ``call_ms`` the call with host lists; ``library_ms`` the single einsum
+   over gathered tables) against their plain versions.  Phase 11 runs
+   after phase 10.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -219,6 +223,24 @@ def time_ms(fn, reps: int = 3) -> float:
         _sync()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """The device time of one call of ``fn``: the kernels' own time under
+    torch.profiler over ``reps`` calls after one warm-up, divided by reps,
+    without the host's gaps between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync()
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    return total / 1e3 / reps
 
 
 def _df_launch_counts() -> dict:
@@ -389,24 +411,28 @@ def _tau_row(a, z, b, mask=None):
 
 
 def _rpa_check(checks, rec, B, no, nv, g):
-    """K1's RPA exchange on the (no, nv) block of B against its plain version,
-    timed, with ``library_ms`` the single einsum over the ov block whose
-    operands are ordered for the cheaper contraction (z with the B factor
-    that the kernel's first stage takes)."""
+    """K1's RPA exchange on the (no, nv) block of B against its plain version
+    (the JAX einsum pair on B), timed, on the aligned copy of the block that
+    the paired sigma makes once per operator (made here outside the timed
+    call, its time ``aligned_ms``), with ``library_ms`` the single einsum
+    over the ov block whose operands are ordered for the cheaper
+    contraction (z with the B factor that the kernel's first stage takes)."""
     from xtddft_tpu_torch.kernels import df_exchange as k1
     from xtddft_tpu_torch.response import flops as fl
 
     z = torch.randn((RPA_NZ, no, nv), generator=g, device="cuda", dtype=B.dtype)
     Bov = B[:, :no, no:no + nv]
+    R = k1.rpa_aligned(B, 0, no, no, nv)
     spec = "xjb,Pib,Pja->xia" if k1.rpa_order(no, nv) == k1.RPA_OV else "xjb,Pja,Pib->xia"
     r = rec(k1.NAME, mode="rpa_exchange", nz=RPA_NZ, fixed_order=True,
-            order="ov" if k1.rpa_order(no, nv) == k1.RPA_OV else "vo")
-    _check(checks, r, lambda: k1.rpa_exchange(B, z, 0, no),
+            order="ov" if k1.rpa_order(no, nv) == k1.RPA_OV else "vo",
+            aligned_ms=time_ms(lambda: k1.rpa_aligned(B, 0, no, no, nv)))
+    _check(checks, r, lambda: k1.rpa_exchange(B, z, 0, no, aligned=R),
            lambda: k1.rpa_exchange_plain(B, z, 0, no), True,
            fl.rpa_exchange_flops(B.shape[0], RPA_NZ, no, nv),
            fl.rpa_exchange_bytes(B.shape[0], RPA_NZ, no, nv, B.element_size()),
            library=lambda: torch.einsum(spec, z, Bov, Bov))
-    del z, Bov
+    del z, Bov, R
     torch.cuda.empty_cache()
 
 
@@ -416,9 +442,16 @@ def _stda_checks(checks, g):
     the sizes its selection gives (`golden_ttm_stda.json`): the P-CSF rows
     against the N-CSF columns of each spin block (the perturbative
     selection's coupling), the final A's diagonal blocks, and the diagonal
-    mode over every CSF.  ``library_ms`` is the single einsum over the two
-    gathered (atoms, rows, columns) tensors, gathered outside the timed
-    call."""
+    mode over every CSF.  The lists are device `CSFList`s made outside the
+    timed call, as `stda.core` makes them once per CSF set.  ``kernel_ms``
+    is the kernel alone (its device time under the profiler, `device_ms`),
+    subtracting into a preallocated block as `coupling_matrix` runs it (the
+    diagonal: into its output); ``ms`` the call (CUDA events, so the host's
+    share between launches too); ``call_ms`` the call with the lists'
+    upload and check from host arrays (what each call did before the lists
+    stayed on the card).  ``library_ms`` is the
+    single einsum over the two gathered (atoms, rows, columns) tensors,
+    gathered outside the timed call."""
     from xtddft_tpu_torch.kernels import stda_coupling as k4
     from xtddft_tpu_torch.response import flops as fl
 
@@ -436,28 +469,39 @@ def _stda_checks(checks, g):
         nfinal = sum(golden["final"][b] for b in blocks)
         p, n = np.sort(order[:npcsf]), np.sort(order[npcsf:])
         f = np.sort(order[:nfinal])
+
+        def dev(idx):
+            return k4.csf_list(o_all[idx], v_all[idx], nocc, nvir, "cuda")
+
         for shape, rows, cols in (("ttm_stda_selection", p, n), ("ttm_stda_final", f, f)):
-            o_r, v_r, o_c, v_c = o_all[rows], v_all[rows], o_all[cols], v_all[cols]
-            idx = [torch.as_tensor(i, device="cuda") for i in (o_r, o_c, v_r, v_c)]
+            lr, lc = dev(rows), dev(cols)
+            idx = [torch.as_tensor(i, device="cuda") for i in (o_all[rows], o_all[cols],
+                                                                v_all[rows], v_all[cols])]
             go = gt[:, idx[0]][:, :, idx[1]]
             qg = qv[:, idx[2]][:, :, idx[3]]
+            buf = torch.zeros((len(rows), len(cols)), dtype=torch.float64, device="cuda")
             r = {"kernel": k4.NAME, "shape": shape, "spin": spin, "dtype": "float64",
                  "natm": natm, "nocc": nocc, "nvir": nvir, "nrow": len(rows),
-                 "ncol": len(cols), "rtol": F64_RTOL, "fixed_order": True}
-            _check(checks, r, lambda: k4.j_block(gt, qv, o_r, v_r, o_c, v_c),
-                   lambda: k4.j_block_plain(gt, qv, o_r, v_r, o_c, v_c), True,
+                 "ncol": len(cols), "rtol": F64_RTOL, "fixed_order": True,
+                 "kernel_ms": device_ms(lambda: k4.j_block(gt, qv, lr, lc, out=buf)),
+                 "call_ms": time_ms(lambda: k4.j_block(gt, qv, dev(rows), dev(cols)))}
+            _check(checks, r, lambda: k4.j_block(gt, qv, lr, lc),
+                   lambda: k4.j_block_plain(gt, qv, lr, lc), True,
                    fl.stda_j_flops(len(rows), len(cols), natm),
                    fl.stda_j_bytes(len(rows), len(cols), natm, nocc, nvir, 8),
                    library=lambda: torch.einsum("Arq,Arq->rq", go, qg))
-            del go, qg
+            del go, qg, buf
+        la = dev(np.arange(o_all.size))
         r = {"kernel": k4.NAME, "shape": "ttm_stda_diagonal", "spin": spin, "dtype": "float64",
              "mode": "diagonal", "natm": natm, "nocc": nocc, "nvir": nvir, "nrow": o_all.size,
-             "rtol": F64_RTOL, "fixed_order": True}
+             "rtol": F64_RTOL, "fixed_order": True,
+             "kernel_ms": device_ms(lambda: k4.j_diagonal(gt, qv, la)),
+             "call_ms": time_ms(lambda: k4.j_diagonal(gt, qv, dev(np.arange(o_all.size))))}
         od = torch.as_tensor(o_all, device="cuda")
         vd = torch.as_tensor(v_all, device="cuda")
         gd, qd = gt[:, od, od], qv[:, vd, vd]
-        _check(checks, r, lambda: k4.j_diagonal(gt, qv, o_all, v_all),
-               lambda: k4.j_diagonal_plain(gt, qv, o_all, v_all), True,
+        _check(checks, r, lambda: k4.j_diagonal(gt, qv, la),
+               lambda: k4.j_diagonal_plain(gt, qv, la), True,
                fl.stda_j_flops(o_all.size, 1, natm),
                fl.stda_j_bytes(o_all.size, 1, natm, nocc, nvir, 8, diagonal=True),
                library=lambda: torch.einsum("Ap,Ap->p", gd, qd))
@@ -1227,6 +1271,7 @@ def phase11(ref, xtda_e_ev) -> dict:
     n_rpa = modes["df_exchange.rpa_exchange"]
     e = res.e_eV
     rec = {"solve_s": wall, "cycles": res.cycles, "pair_builds": n_rpa // 2,
+           "rpa_aligned_s": (res.setup_s or {}).get("rpa_aligned_s"),
            "solver": res.solver, "converged": res.converged, "launches": launches,
            "mode_launches": modes, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "e_ev": e.tolist(), "osc": res.osc.tolist(), "ds2": res.ds2.tolist(),
@@ -1237,7 +1282,8 @@ def phase11(ref, xtda_e_ev) -> dict:
     rec["residuals"] = _pencil_residuals(ref, res)
     _log("phase 11 xtdhf", json.dumps(rec))
     _log(f"phase 11 xtdhf: {res.cycles} cycles, {rec['pair_builds']} pair builds, "
-         f"{wall:.2f} s; RPA - X-TDA (Thouless, not gated) eV: "
+         f"{wall:.2f} s (of it the aligned ov copies' set-up {rec['rpa_aligned_s']} s); "
+         f"RPA - X-TDA (Thouless, not gated) eV: "
          f"{np.round(rec['thouless_rpa_minus_tda_ev'], 5).tolist()}")
     failed = []
     if not (res.converged and len(e) == 10 and res.solver == "rpa-davidson+stabcheck"):
@@ -1248,6 +1294,8 @@ def phase11(ref, xtda_e_ev) -> dict:
             failed.append(f"{k} {rec[k]} above {gate}")
     if not max(rec["residuals"]) <= TDHF_RESIDUAL:
         failed.append(f"pencil residuals {max(rec['residuals'])} above {TDHF_RESIDUAL}")
+    if rec["rpa_aligned_s"] is None:
+        failed.append("the paired sigma made no aligned ov copies")
     if not (n_rpa > 0 and 2 * n_rpa == launches["df_exchange"]):
         failed.append(f"K1's RPA exchange not in every pair build: {n_rpa} of "
                       f"{launches['df_exchange']} K1 launches")
@@ -2179,7 +2227,8 @@ def main(argv=None) -> int:
              and c["shape"] == shape and c["dtype"] == dname and c["spin"] == "a"][0]
         k1_entry.update({f"{prefix}{k}": c[k] for k in ("order", "max_abs_err", "ms",
                                                           "plain_ms", "bound_ms", "bound_by",
-                                                          "library_ms")})
+                                                          "library_ms", "aligned_ms")})
+    k1_entry["rpa_aligned_setup_s"] = record["tdhf"]["xtdhf"]["rpa_aligned_s"]
     # K4: the main path's own shape is the final A's alpha block of TTM's
     # sX-TDA (phase 11); the selection's coupling block and the diagonal beside
     from xtddft_tpu_torch.kernels import stda_coupling as k4
@@ -2194,11 +2243,11 @@ def main(argv=None) -> int:
         "launches": record["tdhf"]["stda"]["launches"][k4.NAME],
         "launches_diagonal": record["tdhf"]["stda"]["mode_launches"][f"{k4.NAME}.diagonal"],
         **{k: main_check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
+                                      "library_ms", "kernel_ms", "call_ms")},
         **{f"selection_{k}": k4_check("ttm_stda_selection")[k]
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "kernel_ms", "call_ms")},
         **{f"diagonal_{k}": k4_check("ttm_stda_diagonal")[k]
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "kernel_ms", "call_ms")},
         "launches_ch2o_sutda": record["small"]["ch2o"]["launches"][k4.NAME],
     })
     record["total_s"] = time.perf_counter() - t_start

@@ -435,6 +435,10 @@ RPA_SHAPES = {
     "nvir300": (48, 340, 0, 40, 40, 300, 2),
     "ragged": (257, 77, 3, 21, 29, 45, 3),  # offsets off a run, odd naux
     "bench": (2000, 1000, 0, 80, 80, 920, 20),
+    "nocc1": (65, 40, 0, 1, 1, 39, 3),  # one occupied orbital
+    "nvir1": (65, 40, 0, 39, 39, 1, 3),  # one virtual
+    "nmo2mod4": (131, 182, 0, 137, 137, 45, 1),  # f32 rows of 182: 2 mod 4; nz 1
+    "vo_wide": (67, 300, 0, 250, 250, 50, 4),  # nocc >= nvir with several tiles of both
 }
 
 
@@ -443,20 +447,71 @@ RPA_SHAPES = {
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-11), (torch.float32, 1e-4)],
                          ids=["f64", "f32"])
 def test_rpa_exchange_matches_plain(cuda, shape, dtype, rtol):
-    """K1's RPA exchange in the order the shape picks, against the plain
-    version, aux-chunked (a chunk of 64 and the default), and repeating
-    bitwise."""
+    """K1's RPA exchange in the order the shape picks, on the aligned copy of
+    the block, against the plain version, aux-chunked (a chunk of 64 and
+    the default), both row tiles of each GEMM, and repeating bitwise."""
     naux, nmo, o0, nocc, v0, nvir, nz = shape
     g = torch.Generator(cuda).manual_seed(1)
     B = torch.randn((naux, nmo, nmo), generator=g, device=cuda, dtype=dtype)
     B = (B + B.transpose(1, 2)).mul_(0.5)
     z = torch.randn((nz, nocc, nvir), generator=g, device=cuda, dtype=dtype)
+    R = k1.rpa_aligned(B, o0, nocc, v0, nvir)
     before = k1.mode_launches["rpa_exchange"]
     for chunk in (64, None):
-        v = k1.rpa_exchange(B, z, o0, v0, chunk)
-        _rel_close(v, k1.rpa_exchange_plain(B, z, o0, v0, chunk), rtol)
-        assert torch.equal(v, k1.rpa_exchange(B, z, o0, v0, chunk))
+        want = k1.rpa_exchange_plain(B, z, o0, v0, chunk)
+        for tiles in ((0, 0), (64, 128), (128, 64)):
+            v = k1.rpa_exchange(B, z, o0, v0, chunk, aligned=R, tiles=tiles)
+            _rel_close(v, want, rtol)
+            assert torch.equal(v, k1.rpa_exchange(B, z, o0, v0, chunk, aligned=R, tiles=tiles))
+    assert k1.mode_launches["rpa_exchange"] == before + 12
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_rpa_aligned_copy(cuda, dtype):
+    """The aligned copy holds the block (or its transpose), its pad is zero,
+    and the kernel refuses a copy of another block."""
+    g = torch.Generator(cuda).manual_seed(2)
+    B = torch.randn((9, 40, 40), generator=g, device=cuda, dtype=dtype)
+    for nocc, nvir in ((7, 33), (33, 7)):
+        R = k1.rpa_aligned(B, 0, nocc, nocc, nvir)
+        blk = B[:, :nocc, nocc:nocc + nvir]
+        want = blk if nocc < nvir else blk.transpose(1, 2)
+        assert torch.equal(R[:, :, :want.shape[2]], want)
+        assert R.shape[2] * R.element_size() % 16 == 0
+        assert not R[:, :, want.shape[2]:].any()
+        z = torch.randn((2, nocc, nvir), generator=g, device=cuda, dtype=dtype)
+        with pytest.raises(ValueError):
+            k1.rpa_exchange(B, z[:, :-1], 0, nocc, aligned=R)
+
+
+@pytest.mark.cuda
+def test_rpa_exchange_rsh_pair(cuda):
+    """The paired DF sigma's B half on the card with an RSH's long-range
+    tensor: four RPA launches a build (both spins, B and B_lr), and the
+    long-range part of B z equal to the plain version's -hyb_lr (ib|ja)
+    z_jb over B_lr."""
+    import dataclasses
+
+    from xtddft_tpu_torch.response import sigma_df
+
+    data = sigma_df.synthetic_df_data(nmo=40, nc=9, no=2, naux=70, ngrid=512, device="cuda",
+                                      dtype=torch.float64)
+    g = torch.Generator(cuda).manual_seed(3)
+    noise = 1e-3 * torch.randn(tuple(data.B.shape), generator=g, device=cuda,
+                               dtype=torch.float64)
+    B_lr = 0.6 * data.B + noise + noise.transpose(1, 2)
+    z = torch.randn((3, 11 * 29 + 9 * 31), generator=g, device=cuda, dtype=torch.float64)
+    before = k1.mode_launches["rpa_exchange"]
+    with_lr = sigma_df.xtda_sigma_df(dataclasses.replace(data, B_lr=B_lr, hyb_lr=0.3),
+                                     with_b=True).matvec(z)[1]
     assert k1.mode_launches["rpa_exchange"] == before + 4
+    short = sigma_df.xtda_sigma_df(data, with_b=True).matvec(z)[1]
+    za, zb = z[:, :11 * 29].reshape(3, 11, 29), z[:, 11 * 29:].reshape(3, 9, 31)
+    want = -0.3 * torch.cat([k1.rpa_exchange_plain(B_lr, za, 0, 11).reshape(3, -1),
+                             k1.rpa_exchange_plain(B_lr, zb, 0, 9).reshape(3, -1)], dim=1)
+    _rel_close(with_lr - short, want, 1e-10)
     torch.cuda.synchronize()
 
 
@@ -464,13 +519,18 @@ def test_rpa_exchange_matches_plain(cuda, shape, dtype, rtol):
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)],
                          ids=["f64", "f32"])
 def test_stda_coupling_edges(cuda, dtype, rtol):
-    """K4 against its plain version: TTM-like tables with a full block, one
-    row, repeated indices, and the diagonal; an empty list launches
-    nothing."""
+    """K4 against its plain version on device lists: TTM-like tables with a
+    full block, one row, repeated indices, and the diagonal; the block
+    subtracted in place from a strided view of a larger matrix; an empty
+    list launches nothing; an out-of-range list raises where it is made."""
     rng = np.random.default_rng(3)
     natm, nocc, nvir = 34, 73, 46
     g = torch.as_tensor(rng.normal(size=(natm, nocc, nocc)), dtype=dtype, device=cuda)
     qv = torch.as_tensor(rng.normal(size=(natm, nvir, nvir)), dtype=dtype, device=cuda)
+
+    def lst(o, v):
+        return k4.csf_list(o, v, nocc, nvir, cuda)
+
     lists = {
         "block": (rng.integers(0, nocc, 300), rng.integers(0, nvir, 300),
                   rng.integers(0, nocc, 1000), rng.integers(0, nvir, 1000)),
@@ -479,16 +539,35 @@ def test_stda_coupling_edges(cuda, dtype, rtol):
         "repeated": (np.full(40, 3), np.full(40, 2), np.full(33, 3), np.full(33, 2)),
     }
     for o_r, v_r, o_c, v_c in lists.values():
-        J = k4.j_block(g, qv, o_r, v_r, o_c, v_c)
-        _rel_close(J, k4.j_block_plain(g, qv, o_r, v_r, o_c, v_c), rtol)
-        assert torch.equal(J, k4.j_block(g, qv, o_r, v_r, o_c, v_c))
-        d = k4.j_diagonal(g, qv, o_r, v_r)
-        _rel_close(d, k4.j_diagonal_plain(g, qv, o_r, v_r), rtol)
+        lr, lc = lst(o_r, v_r), lst(o_c, v_c)
+        assert lr.occ.dtype == torch.int32 and lr.occ.device.type == "cuda"
+        J = k4.j_block(g, qv, lr, lc)
+        _rel_close(J, k4.j_block_plain(g, qv, lr, lc), rtol)
+        assert torch.equal(J, k4.j_block(g, qv, lr, lc))
+        M = torch.randn((len(o_r) + 5, len(o_c) + 9), dtype=dtype, device=cuda)
+        want = M.clone()
+        want[2:-3, 4:-5] -= J
+        k4.j_block(g, qv, lr, lc, out=M[2:-3, 4:-5])
+        assert torch.equal(M, want)
+        d = k4.j_diagonal(g, qv, lr)
+        _rel_close(d, k4.j_diagonal_plain(g, qv, lr), rtol)
+        assert torch.equal(d, k4.j_diagonal(g, qv, lr))
     before = k4.launches
-    empty = np.zeros(0, dtype=np.int64)
-    assert k4.j_block(g, qv, empty, empty, *lists["block"][2:]).shape == (0, 1000)
-    assert k4.j_diagonal(g, qv, empty, empty).shape == (0,)
+    empty = lst(np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64))
+    assert k4.j_block(g, qv, empty, lst(*lists["block"][2:])).shape == (0, 1000)
+    assert k4.j_diagonal(g, qv, empty).shape == (0,)
     assert k4.launches == before
+    # a wide virtual table
+    gw = torch.as_tensor(rng.normal(size=(3, 5, 5)), dtype=dtype, device=cuda)
+    qw = torch.as_tensor(rng.normal(size=(3, 400, 400)), dtype=dtype, device=cuda)
+    lw = k4.csf_list(rng.integers(0, 5, 70), rng.integers(0, 400, 70), 5, 400, cuda)
+    lv = k4.csf_list(rng.integers(0, 5, 300), rng.integers(0, 400, 300), 5, 400, cuda)
+    _rel_close(k4.j_block(gw, qw, lw, lv), k4.j_block_plain(gw, qw, lw, lv), rtol)
+    for bad in ((np.array([nocc]), np.array([0])), (np.array([0]), np.array([-1]))):
+        with pytest.raises(ValueError):
+            lst(*bad)
+    with pytest.raises(ValueError):  # a list checked against other extents
+        k4.j_block(g, qv, k4.csf_list([1], [1], nocc + 1, nvir, cuda), lst([1], [1]))
     torch.cuda.synchronize()
 
 

@@ -78,9 +78,22 @@ def test_context_and_k4(refs, which):
     for s in (0, 1):
         rows = np.flatnonzero(spin == s)
         r, c = rng.choice(rows, 9), rows  # repeated rows, every column
-        got = k4.j_block(ctx.g_oo[s], ctx.qj_vv[s], occ[r], vir[r], occ[c], vir[c])
+        lr, lc = (k4.csf_list(occ[i], vir[i], ctx.nocc[s], ctx.nvir[s], "cpu") for i in (r, c))
+        assert lr.occ.dtype == torch.int32 and lr.occ.device.type == "cpu"
+        got = k4.j_block(ctx.g_oo[s], ctx.qj_vv[s], lr, lc)
         want = np.asarray(jax_core._j_block(jctx, s, occ[r], vir[r], occ[c], vir[c]))
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+        # subtracted in place from a strided block, as coupling_matrix does
+        M = torch.ones((len(r) + 3, len(c) + 5), dtype=got.dtype)
+        k4.j_block(ctx.g_oo[s], ctx.qj_vv[s], lr, lc, out=M[2:-1, 1:-4])
+        torch.testing.assert_close(M[2:-1, 1:-4], 1.0 - got, rtol=0, atol=0)
+        assert (M[:2] == 1).all() and (M[-1] == 1).all() and (M[:, 0] == 1).all()
+        np.testing.assert_allclose(k4.j_diagonal(ctx.g_oo[s], ctx.qj_vv[s], lc).numpy(),
+                                   np.diagonal(np.asarray(jax_core._j_block(
+                                       jctx, s, occ[c], vir[c], occ[c], vir[c]))),
+                                   rtol=0, atol=1e-12)
+        with pytest.raises(ValueError):  # an index out of range, where the list is made
+            k4.csf_list(occ[r], vir[r] + ctx.nvir[s], ctx.nocc[s], ctx.nvir[s], "cpu")
     iaia, kd = core.csf_diagonal(ctx, full)
     jiaia, jkd = jax_core.csf_diagonal(jctx, full)
     np.testing.assert_allclose(iaia, jiaia, rtol=0, atol=1e-12)

@@ -113,6 +113,36 @@ def test_rpa_exchange_plain_is_jax_k2(chunk):
     _rel_close(got_b.reshape(3, -1), want[:, nocca * nvira:], 1e-12)
     torch.testing.assert_close(got_a, k1.rpa_exchange_plain(B, za, 0, nocca, chunk), rtol=0,
                                atol=0)
+    # the same on the aligned copies the paired sigma makes once per operator
+    for zs, no, lo, hi in ((za, nocca, 0, nocca * nvira), (zb, noccb, nocca * nvira, None)):
+        got = k1.rpa_exchange(B, zs, 0, no, chunk, aligned=k1.rpa_aligned(B, 0, no, no,
+                                                                          zs.shape[2]))
+        _rel_close(got.reshape(3, -1), want[:, lo:hi], 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_rpa_aligned_copy_is_the_block(dtype):
+    """The aligned copy equals the strided ov block (RPA_OV) or its
+    transpose (RPA_VO), with rows padded to 16 bytes by zeros; a copy of
+    another block is refused."""
+    rng = np.random.default_rng(6)
+    B = torch.as_tensor(rng.normal(size=(5, 30, 30)), dtype=dtype)
+    for o0, nocc, v0, nvir in ((0, 7, 7, 23), (0, 23, 23, 7), (2, 9, 13, 15), (0, 15, 15, 15)):
+        R = k1.rpa_aligned(B, o0, nocc, v0, nvir)
+        blk = B[:, o0:o0 + nocc, v0:v0 + nvir]
+        want = blk if k1.rpa_order(nocc, nvir) == k1.RPA_OV else blk.transpose(1, 2)
+        n2 = want.shape[2]
+        assert R.is_contiguous() and R.shape[:2] == want.shape[:2]
+        assert R.shape[2] * R.element_size() % 16 == 0 and 0 <= R.shape[2] - n2 < 16
+        assert torch.equal(R[:, :, :n2], want)
+        assert not R[:, :, n2:].any()
+        z = torch.as_tensor(rng.normal(size=(2, nocc, nvir)), dtype=dtype)
+        torch.testing.assert_close(k1.rpa_exchange_plain(B, z, o0, v0, aligned=R),
+                                   k1.rpa_exchange_plain(B, z, o0, v0),
+                                   rtol=1e-5 if dtype == torch.float32 else 1e-13,
+                                   atol=1e-5 if dtype == torch.float32 else 1e-13)
+        with pytest.raises(ValueError):
+            k1.rpa_exchange_plain(B, z[:, :-4], o0, v0, aligned=R)
 
 
 @pytest.fixture(scope="module")

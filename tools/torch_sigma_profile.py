@@ -1,7 +1,7 @@
 """Where a DF sigma build of the PyTorch port spends its time, on a GPU.
 
     python3 tools/torch_sigma_profile.py [--op xtda|xsf] [--ttm] [--bench] [--xtda] [--out DIR]
-    python3 tools/torch_sigma_profile.py --solve N --against DIR
+    python3 tools/torch_sigma_profile.py --solve N --against DIR [--method xtda|xtdhf]
 
 Builds the operator (TTM/STO-3G from ``tests/data/ttm_ckpt.npz`` in f64,
 and/or the nmo=1000 bench operator in f32; ``--op xtda``, the default, the
@@ -14,9 +14,10 @@ kernels do not overlap).  ``--out`` writes the
 chrome traces there.  ``--xtda`` instead runs the whole TTM
 ``XTDA(...).kernel()`` under cProfile and prints the host functions with the
 most cumulative time.  ``--solve N --against DIR`` instead compares the
-steady-state TTM X-TDA solve of this tree with that of another checkout
-(DIR, for example the parent commit unpacked by ``git archive``): four
-processes in the order DIR, this tree, this tree, DIR, each timing N
+steady-state TTM X-TDA solve (``--method xtdhf``: the X-TDHF solve of
+``XTDHF(backend="df")``, 10 roots) of this tree with that of another
+checkout (DIR, for example the parent commit unpacked by ``git archive``):
+four processes in the order DIR, this tree, this tree, DIR, each timing N
 solves after its host set-up and a first solve (kernel builds and first
 uses out of the way).
 """
@@ -127,10 +128,11 @@ def xtda_host_profile(out: pathlib.Path | None) -> None:
         stats.dump_stats(str(out / "xtda_ttm.pstats"))
 
 
-def xtda_solves(n: int) -> None:
-    """Wall seconds of n steady-state TTM X-TDA solves, one JSON line."""
+def xtda_solves(n: int, method: str = "xtda") -> None:
+    """Wall seconds of n steady-state TTM X-TDA (or X-TDHF) solves, one JSON
+    line."""
     import xtddft_tpu_torch
-    from xtddft_tpu_torch.methods.drivers import XTDA
+    from xtddft_tpu_torch.methods.drivers import XTDA, XTDHF
     from xtddft_tpu_torch.response.reference_state import make_reference
     from xtddft_tpu_torch.scf.checkpoint import load_mf
 
@@ -141,14 +143,14 @@ def xtda_solves(n: int) -> None:
     walls = []
     for _ in range(n + 1):
         t0 = time.perf_counter()
-        res = XTDA(ref, nstates=10, backend="df").kernel()
+        res = (XTDHF if method == "xtdhf" else XTDA)(ref, nstates=10, backend="df").kernel()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    print(json.dumps({"package": xtddft_tpu_torch.__file__, "xtda_solve_s": walls[1:],
+    print(json.dumps({"package": xtddft_tpu_torch.__file__, "solve_s": walls[1:],
                       "first_solve_s": walls[0], "cycles": res.cycles}), flush=True)
 
 
-def solve_pairs(n: int, against: pathlib.Path) -> None:
+def solve_pairs(n: int, against: pathlib.Path, method: str = "xtda") -> None:
     """xtda_solves of ``against`` and of this tree in alternating
     processes (against, this, this, against); one JSON line each, then the
     two trees' solve times side by side."""
@@ -157,14 +159,14 @@ def solve_pairs(n: int, against: pathlib.Path) -> None:
     times = {"against": [], "this": []}
     for tag, root in (("against", against), ("this", ROOT), ("this", ROOT),
                       ("against", against)):
-        run = subprocess.run([sys.executable, __file__, "--solve", str(n), "--root", str(root)],
-                             cwd=root, capture_output=True, text=True)
+        run = subprocess.run([sys.executable, __file__, "--solve", str(n), "--root", str(root),
+                              "--method", method], cwd=root, capture_output=True, text=True)
         if run.returncode != 0:
             sys.stderr.write(run.stderr[-4000:])
             raise SystemExit(f"torch_sigma_profile: the solves in {root} failed")
         rec = json.loads(run.stdout.strip().splitlines()[-1])
         print(json.dumps({"tree": tag, **rec}), flush=True)
-        times[tag].append(rec["xtda_solve_s"])
+        times[tag].append(rec["solve_s"])
     print(json.dumps({"against_s": times["against"], "this_s": times["this"]}), flush=True)
 
 
@@ -176,13 +178,14 @@ def main(argv=None) -> int:
     ap.add_argument("--xtda", action="store_true")
     ap.add_argument("--solve", type=int, default=0, metavar="N")
     ap.add_argument("--against", type=pathlib.Path, metavar="DIR")
+    ap.add_argument("--method", choices=("xtda", "xtdhf"), default="xtda")
     ap.add_argument("--root", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=pathlib.Path)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_sigma_profile: needs a CUDA device")
     if args.solve and args.against:
-        solve_pairs(args.solve, args.against.resolve())
+        solve_pairs(args.solve, args.against.resolve(), args.method)
         return 0
     if args.xtda:
         xtda_host_profile(args.out)
@@ -191,7 +194,7 @@ def main(argv=None) -> int:
         if args.root is None:
             raise SystemExit("torch_sigma_profile: --solve needs --against DIR")
         sys.path.insert(0, str(args.root))  # the package of the tree under test
-        xtda_solves(args.solve)
+        xtda_solves(args.solve, args.method)
         return 0
     if args.ttm or not args.bench:
         profile(f"ttm_{args.op}", *_ttm_op(args.op), args.out)

@@ -9,23 +9,7 @@
 //   T[P,j,x,a] = sum_b  z[x, j, b] Bv[P, v0+a, v0+b]            (half-transform)
 //   K[x, i, a] = sum_Pj B[P, o0+j, o0+i] T[P, j, x, a]
 //
-// Bv is B itself for a spin-conserving block.
-//
-// The RPA exchange mode (`mode` 1 or 2) computes, on one spin's B, the
-// exchange of the RPA B matrix, the JAX `xtda_sigma_df._k2` (:459-477):
-//
-//   v[x, i, a] = sum_{P,j,b} B[P, o0+i, v0+b] B[P, o0+j, v0+a] z[x, j, b]
-//
-// through the same two stages with other row and column ranges of B (B is
-// symmetric in its MO pair), in the cheaper of two orders:
-//   mode 1 (nocc < nvir): T[P,j,x,i] = sum_b z[x,j,b] B[P, o0+i, v0+b],
-//                         v[x,i,a]  = sum_{P,j} B[P, o0+j, v0+a] T[P,j,x,i]
-//                         (stage B's output transposed on store);
-//   mode 2 (nvir <= nocc, the JAX order):
-//                         T[P,b,x,a] = sum_j z[x,j,b] B[P, v0+a, o0+j],
-//                         v[x,i,a]  = sum_{P,b} B[P, v0+b, o0+i] T[P,b,x,a]
-//                         (z goes in as [j][x*nvir + b]).
-// Both cost 4*naux*nz*nocc*nvir*min(nocc, nvir) flops; there is no t.  A spin-flip block pairs the
+// Bv is B itself for a spin-conserving block.  A spin-flip block pairs the
 // occupied orbitals of one spin with the virtuals of the other: Bv is then
 // the other spin's MO transform (UKS, flip-up), its o and v ranges may
 // overlap (flip-down on a restricted-open reference: o = [0, nc+no),
@@ -75,11 +59,41 @@
 // slice of nz*nocc*nvir.  Launches on the caller's stream, allocates
 // nothing, returns the first CUDA error.  The Coulomb t kernel and stage A
 // store each element once, so t and K are bitwise repeatable.
+//
+// The RPA exchange (`rpa_exchange_*`): the exchange of the RPA B matrix,
+// the JAX `xtda_sigma_df._k2` (:459-477), on one spin's ov block of B:
+//
+//   v[x, i, a] = sum_{P,j,b} B[P, o0+i, v0+b] B[P, o0+j, v0+a] z[x, j, b]
+//
+// in the cheaper of two orders.  With n1 = min(nocc, nvir), n2 = max, the
+// wrapper gives R, an aligned copy of the block made once per operator:
+// (naux, n1, ldr) with rows zero-padded to 16 bytes (ldr >= n2), the ov
+// block itself when nocc < nvir ("ov") and its transpose otherwise ("vo"),
+// and z' (nz*n1 rows of ldz >= n2 elements): z, or z with its last two axes
+// swapped.  Both orders are then
+//   stage A: T[(q, j), (x, i)] = sum_k z'[(x, j), k] R[P0+q, i, k]
+//   stage B: out[m, (x, i)]    = sum_{q, j} R[P0+q, j, m] T[(q, j), (x, i)]
+// with v[x, i, a] = out[a, (x, i)] for "ov" and v[x, m, a] = out[m, (x, a)]
+// for "vo"; each costs 2*naux*nz*n1^2*n2 flops.  On R the (P, row) pairs
+// have one stride, so the aux index folds into the GEMM extents: stage A is
+// one GEMM per aux chunk with M = nz*n1, N = chunk*n1, K = n2 (the per-P
+// GEMMs of N = n1 that this replaced filled 45-137 of their 64-192 tile
+// columns), stage B one with M = n2, N = nz*n1, K = chunk*n1.  Both run on
+// the TMA core of `tma_gemm.cuh`: R, z' and T are read as TMA boxes (16-byte
+// strides, zero fill past every edge, so R's pad is never read as a live
+// column), stage A's operands k-contiguous and stage B's m- and
+// n-contiguous; stage A's epilogue stores T rows of np (16-byte padded)
+// elements, which stage B reads as boxes.  Stage B is cut into splits of
+// its k steps where its tiles alone do not fill the card; the splits write
+// workspace slices that `gt::sum_slices` adds into v in split order, so
+// every launch sums in the same order and repeats bitwise.  Tiles BM x 128
+// (`pick_bm`, from the tile timings of `tools/rpa_tiles.py`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gemm_tile.cuh"
+#include "tma_gemm.cuh"
 
 namespace {
 
@@ -152,14 +166,13 @@ struct Args {
   int np;
   T* W;  // the split partials' workspace, wcap elements
   int64_t wcap;
-  int mode;  // 0: exchange (and t); 1, 2: the RPA exchange's two orders
-  // the mode's geometry, set by `launch`: stage A makes
+  int mode;  // 0: the exchange (and t); no other mode
+  // the geometry, set by `launch`: stage A makes
   //   T[q][j][x*na + n] = sum_{k < ka} zT[shift + k][x*J + j] Bv[P0+q, ra + n, ca + k]
   // (j < J, n < na) and stage B adds
   //   out[m, x*na + c] = sum_{q, j < J} B[P0+q, rb + j, cb + m] T[q][j][x*na + c]
-  // (m < mb) into K at (x*mb + m)*na + c, or at (x*na + c)*mb + m (trans)
+  // (m < mb) into K at (x*mb + m)*na + c
   int J, na, ka, ra, ca, mb, rb, cb;
-  bool trans;
 };
 
 // stage A: T[q, j, x, n] = sum_k zT[shift + k][m] Bv[P0+q, ra+n, ca+k], m = x*J + j
@@ -236,8 +249,7 @@ struct ExchangeBack {
 
   __device__ void store(int, int m, int n, T v) const {
     const int x = n / a.na, c = n - x * a.na;
-    const int64_t i = a.trans ? ((int64_t)x * a.na + c) * a.mb + m
-                              : ((int64_t)x * a.mb + m) * a.na + c;
+    const int64_t i = ((int64_t)x * a.mb + m) * a.na + c;
     if (W != nullptr)
       W[blockIdx.y * (int64_t)M * N + i] = v;
     else
@@ -249,20 +261,9 @@ template <typename T>
 int launch(Args<T> g, int chunk, void* stream_ptr) {
   constexpr int V = 16 / sizeof(T);
   const int no = g.nocc, nv = g.nvir, o0 = g.o0, v0 = g.v0;
-  if (g.mode == 0) {
-    g.J = no, g.na = nv, g.ka = nv, g.ra = v0, g.ca = v0, g.mb = no, g.rb = o0, g.cb = o0;
-    g.trans = false;
-  } else if (g.mode == 1) {
-    g.J = no, g.na = no, g.ka = nv, g.ra = o0, g.ca = v0, g.mb = nv, g.rb = o0, g.cb = v0;
-    g.trans = true;
-  } else if (g.mode == 2) {
-    g.J = nv, g.na = nv, g.ka = no, g.ra = v0, g.ca = o0, g.mb = no, g.rb = v0, g.cb = o0;
-    g.trans = false;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (g.mode != 0) return (int)cudaErrorInvalidValue;
+  g.J = no, g.na = nv, g.ka = nv, g.ra = v0, g.ca = v0, g.mb = no, g.rb = o0, g.cb = o0;
   if (g.nz <= 0 || no <= 0 || nv <= 0 || g.naux <= 0 || chunk <= 0 ||
-      (g.mode != 0 && g.t != nullptr) ||
       g.shift < 0 || g.shift > g.ca || g.ldz % V != 0 || g.np % V != 0 ||
       g.ldz < g.nz * g.J || g.np < g.nz * g.na ||
       !gt::aligned16(g.zT, {}) || !gt::aligned16(g.Tb, {}))
@@ -298,6 +299,109 @@ int launch(Args<T> g, int chunk, void* stream_ptr) {
   return (int)err;
 }
 
+// ---- the RPA exchange on the TMA core ---------------------------------------------
+
+// stage A's epilogue: C[(x, j), (q, i)] to T[(q*n1 + j)*np + x*n1 + i]
+template <typename T_>
+struct HalfStore {
+  using T = T_;
+  static constexpr int MAJ = tg::KMAJOR;
+  T* Tb;
+  int n1, np;
+  __device__ int64_t row(int m) const {
+    const int x = m / n1;
+    return (int64_t)(m - x * n1) * np + (int64_t)x * n1;
+  }
+  __device__ int64_t col(int n) const {
+    const int q = n / n1;
+    return (int64_t)q * n1 * np + (n - q * n1);
+  }
+  __device__ void put(int64_t i, int, T v) const { Tb[i] = v; }
+};
+
+// stage B's epilogue: out[m, (x, c)] into v (trans: v[x, c, m], else
+// v[x, m, c]), or into split s's slice of W
+template <typename T_>
+struct BackStore {
+  using T = T_;
+  static constexpr int MAJ = tg::MNMAJOR;
+  T* v;
+  T* W;  // null: one split, added into v
+  int64_t slice;
+  int n1, n2;
+  bool trans;
+  __device__ int64_t row(int m) const { return trans ? m : (int64_t)m * n1; }
+  __device__ int64_t col(int n) const {
+    if (trans) return (int64_t)n * n2;
+    const int x = n / n1;
+    return (int64_t)x * n2 * n1 + (n - x * n1);
+  }
+  __device__ void put(int64_t i, int s, T val) const {
+    if (W != nullptr)
+      W[s * slice + i] = val;
+    else
+      v[i] += val;  // the block owns this element
+  }
+};
+
+// The row tile: f64 always 64 (the 128-row tile needs more than the 168
+// registers a thread of a 288-thread block gets, and spilled); f32 64
+// where that pads M to less than 85% of what 128 pads it to, else 128
+template <typename T>
+int pick_bm(int M) {
+  if (sizeof(T) == 8) return 64;
+  const int64_t p64 = (M + 63) / 64 * 64, p128 = (M + 127) / 128 * 128;
+  return p64 * 100 < p128 * 85 ? 64 : 128;
+}
+
+template <typename T>
+int rpa_launch(const T* R, int naux, int n1, int n2, int ldr, const T* zq, int ldz, int nz,
+               int trans, T* v, T* Tb, int np, int chunk, T* W, long long wcap, int bm_a,
+               int bm_b, void* stream_ptr) {
+  constexpr int V = 16 / sizeof(T), EPC = 128 / sizeof(T), BK = EPC;
+  const int64_t slice = (int64_t)nz * n1 * n2;  // one slice of W: all of v
+  if (naux <= 0 || n1 <= 0 || n2 <= 0 || nz <= 0 || chunk <= 0 || ldr < n2 || ldz < n2 ||
+      np < nz * n1 || ldr % V != 0 || ldz % V != 0 || np % V != 0 ||
+      !gt::aligned16(R, {}) || !gt::aligned16(zq, {}) || !gt::aligned16(Tb, {}) ||
+      W == nullptr || wcap < slice || (bm_a != 0 && bm_a != 64 && bm_a != 128) ||
+      (bm_b != 0 && bm_b != 64 && bm_b != 128) || (int64_t)naux * n1 > 0x7fffffff ||
+      (int64_t)nz * n1 > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  const int Ma = nz * n1;
+  if (bm_a == 0) bm_a = pick_bm<T>(Ma);
+  if (bm_b == 0) bm_b = pick_bm<T>(n2);
+  // descriptors that do not depend on the chunk: z' and R k-contiguous
+  // (stage A), R m-contiguous (stage B)
+  CUtensorMap dz, dra, drb;
+  cudaError_t err = tg::encode(&dz, zq, n2, Ma, ldz, BK, bm_a);
+  if (err == cudaSuccess) err = tg::encode(&dra, R, n2, (int64_t)naux * n1, ldr, BK, tg::BN);
+  if (err == cudaSuccess) err = tg::encode(&drb, R, n2, (int64_t)naux * n1, ldr, EPC, BK);
+  const HalfStore<T> pa{Tb, n1, np};
+  BackStore<T> pb{v, nullptr, slice, n1, n2, trans != 0};
+  for (int P0 = 0; P0 < naux && err == cudaSuccess; P0 += chunk) {
+    const int nq = std::min(chunk, naux - P0);
+    tg::Work wa{Ma, nq * n1, (n2 + BK - 1) / BK, 0, 0, 0, 0, 0, 0, P0 * n1, 0};
+    err = bm_a == 64 ? tg::plan<64, HalfStore<T>>(wa, 1) : tg::plan<128, HalfStore<T>>(wa, 1);
+    if (err == cudaSuccess)
+      err = bm_a == 64 ? tg::launch<64>(dz, dra, wa, pa, stream)
+                       : tg::launch<128>(dz, dra, wa, pa, stream);
+    CUtensorMap dt;
+    if (err == cudaSuccess) err = tg::encode(&dt, (const T*)Tb, (int64_t)nz * n1, (int64_t)nq * n1,
+                                             np, EPC, BK);
+    if (err != cudaSuccess) break;
+    tg::Work wb{n2, nz * n1, (nq * n1 + BK - 1) / BK, 0, 0, 0, 0, 0, P0 * n1, 0, 0};
+    err = bm_b == 64 ? tg::plan<64, BackStore<T>>(wb, wcap / slice)
+                     : tg::plan<128, BackStore<T>>(wb, wcap / slice);
+    if (err != cudaSuccess) break;
+    pb.W = wb.split > 1 ? W : nullptr;
+    err = bm_b == 64 ? tg::launch<64>(drb, dt, wb, pb, stream)
+                     : tg::launch<128>(drb, dt, wb, pb, stream);
+    if (err == cudaSuccess && pb.W != nullptr) err = gt::sum_slices(W, slice, wb.split, v, stream);
+  }
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -320,6 +424,20 @@ int df_exchange_f32(const float* B, long long sP, long long sp, long long sq, co
   return launch<float>({B, sP, sp, sq, Bv, vP, vp, vq, naux, z, zT, ldz, shift, nz, nocc, nvir,
                         o0, v0, t, K, Tb, np, W, wcap, mode},
                        chunk, stream);
+}
+
+int rpa_exchange_f64(const double* R, int naux, int n1, int n2, int ldr, const double* zq,
+                     int ldz, int nz, int trans, double* v, double* Tb, int np, int chunk,
+                     double* W, long long wcap, int bm_a, int bm_b, void* stream) {
+  return rpa_launch<double>(R, naux, n1, n2, ldr, zq, ldz, nz, trans, v, Tb, np, chunk, W, wcap,
+                            bm_a, bm_b, stream);
+}
+
+int rpa_exchange_f32(const float* R, int naux, int n1, int n2, int ldr, const float* zq, int ldz,
+                     int nz, int trans, float* v, float* Tb, int np, int chunk, float* W,
+                     long long wcap, int bm_a, int bm_b, void* stream) {
+  return rpa_launch<float>(R, naux, n1, n2, ldr, zq, ldz, nz, trans, v, Tb, np, chunk, W, wcap,
+                           bm_a, bm_b, stream);
 }
 
 const char* xk_error_string(int code) {

@@ -67,6 +67,20 @@ def entry(name: str, argtypes: list, dtype: torch.dtype):
     raise TypeError(f"{name}: float32 or float64 tensors only, got {dtype}")
 
 
+def extra_entry(name: str, argtypes: list, func: str, func_args: list, dtype: torch.dtype):
+    """A second C entry ``<func>_f32`` / ``<func>_f64`` of ``csrc/<name>.cu``
+    (the library loaded with ``argtypes`` for its own entries), bound with
+    ``func_args``."""
+    lib = load(name, argtypes)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64 tensors only, got {dtype}")
+    fn = getattr(lib, f"{func}_{'f64' if dtype == torch.float64 else 'f32'}")
+    if fn.argtypes is None:
+        fn.argtypes = func_args
+        fn.restype = I
+    return lib, fn
+
+
 def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
     """Raise on a refused launch (the C entry returns cudaGetLastError())."""
     if rc != 0:

@@ -5,8 +5,11 @@ and the spin-flip exchange `sf_sigma_df._k` (:821) / `xsf_sigma_df._k`
 (:1066): there the virtual panel may come from a second tensor (``B_vir``:
 the other spin's MO transform), the o and v ranges may overlap, and there is
 no Coulomb term (``with_t=False``).  `rpa_exchange` is the RPA B matrix's
-exchange, `xtda_sigma_df._k2` (:459-477), on the same two stages with other
-row and column ranges of B, in the cheaper of two contraction orders.  The
+exchange, `xtda_sigma_df._k2` (:459-477), in the cheaper of two contraction
+orders, on an aligned copy of one spin's ov block (`rpa_aligned`, made once
+per operator): two GEMMs per aux chunk with the aux index folded into their
+extents, on the TMA-fed core of `csrc/tma_gemm.cuh` (the C entry
+``rpa_exchange_*``).  The exchange's
 CUDA source (`csrc/df_exchange.cu`) runs it as two GEMMs on the tile
 core of `csrc/gemm_tile.cuh` (f64 on the DMMA tensor cores, f32 as
 register-tiled FMA, `cp.async` staging) through a half-transform buffer T
@@ -42,7 +45,10 @@ mode_launches = {"exchange_only": 0, "rpa_exchange": 0}
 _ARGS = [_cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.P, _cuda.L, _cuda.L, _cuda.L, _cuda.I,
          _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.I,
          _cuda.I, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.L, _cuda.P]
-# the C entry's modes
+# the RPA exchange's C entry (rpa_exchange_f32 / _f64)
+_RPA_ARGS = [_cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.I, _cuda.I, _cuda.I,
+             _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.L, _cuda.I, _cuda.I, _cuda.P]
+# the C entry's mode; the RPA exchange's two contraction orders
 EXCHANGE, RPA_OV, RPA_VO = 0, 1, 2
 
 
@@ -124,20 +130,62 @@ def rpa_order(nocc: int, nvir: int) -> int:
     return RPA_OV if nocc < nvir else RPA_VO
 
 
+def rpa_aligned(B: torch.Tensor, o0: int, nocc: int, v0: int, nvir: int) -> torch.Tensor:
+    """The aligned copy of the ov block B[:, o0:o0+nocc, v0:v0+nvir] that
+    `rpa_exchange` reads: (naux, nocc, ldr) in the RPA_OV order, its
+    transpose (naux, nvir, ldr) in the RPA_VO order, with rows zero-padded
+    to 16 bytes (ldr = the block's row length rounded up to 16 bytes), on
+    B's device in B's dtype.  One copy per operator and spin (the sigma
+    makes it with the operator), not one per launch."""
+    Bov = B[:, o0:o0 + nocc, v0:v0 + nvir]
+    src = Bov if rpa_order(nocc, nvir) == RPA_OV else Bov.transpose(1, 2)
+    n1, n2 = src.shape[1:]
+    R = torch.zeros((B.shape[0], n1, _round_up(n2, 16 // B.element_size())), dtype=B.dtype,
+                    device=B.device)
+    R[:, :, :n2] = src
+    return R
+
+
+def _check_aligned(R, B, z):
+    nz, nocc, nvir = z.shape
+    n1, n2 = min(nocc, nvir), max(nocc, nvir)
+    if (R.dim() != 3 or tuple(R.shape) != (B.shape[0], n1, _round_up(n2, 16 // R.element_size()))
+            or not R.is_contiguous()
+            or R.dtype != z.dtype or R.device != z.device):
+        raise ValueError(f"{NAME}: aligned copy {tuple(R.shape)} {R.dtype} on {R.device} does "
+                         f"not hold the ({nocc}, {nvir}) block of B {tuple(B.shape)} "
+                         "(see rpa_aligned)")
+
+
+def _rpa_block(B, z, o0, v0, aligned):
+    """The ov block (naux, nocc, nvir): a view of B, or of the aligned copy."""
+    nz, nocc, nvir = z.shape
+    if aligned is None:
+        return B[:, o0:o0 + nocc, v0:v0 + nvir]
+    if rpa_order(nocc, nvir) == RPA_OV:
+        return aligned[:, :, :nvir]
+    return aligned[:, :, :nocc].transpose(1, 2)
+
+
 def rpa_exchange_plain(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
-                       chunk: int | None = None) -> torch.Tensor:
+                       chunk: int | None = None, aligned: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """v (nz, nocc, nvir) by einsums in the order `rpa_order` picks (RPA_VO:
     the JAX `_k2` pair), aux-chunked by ``chunk`` rows (default:
-    ``plan_aux_chunk``'s for that order's T)."""
+    ``plan_aux_chunk``'s for that order's T), on the ov block of B or, where
+    given, of its aligned copy (`rpa_aligned`)."""
     naux = B.shape[0]
     nz, nocc, nvir = z.shape
     ov = rpa_order(nocc, nvir) == RPA_OV
     if chunk is None:
-        n = nocc if ov else nvir
+        n = min(nocc, nvir)
         chunk = plan_aux_chunk(naux, nz, n, n, z.element_size())
+    if aligned is not None:
+        _check_aligned(aligned, B, z)
+    block = _rpa_block(B, z, o0, v0, aligned)
     v = torch.zeros((nz, nocc, nvir), dtype=z.dtype, device=z.device)
     for p0 in range(0, naux, chunk):
-        Bov = B[p0:p0 + chunk, o0:o0 + nocc, v0:v0 + nvir]
+        Bov = block[p0:p0 + chunk]
         if ov:
             T = torch.einsum("Pib,xjb->xPji", Bov, z)
             v += torch.einsum("Pja,xPji->xia", Bov, T)
@@ -148,36 +196,70 @@ def rpa_exchange_plain(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
 
 
 def rpa_exchange(B: torch.Tensor, z: torch.Tensor, o0: int, v0: int,
-                 chunk: int | None = None) -> torch.Tensor:
+                 chunk: int | None = None, aligned: torch.Tensor | None = None,
+                 tiles: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """v[x,i,a] = sum_{P,j,b} B[P,o0+i,v0+b] B[P,o0+j,v0+a] z[x,j,b]: the
     exchange (ib|ja) z_jb of the RPA B matrix on one spin's tensor.
 
     B: (naux, nmo, nmo), any strides, symmetric in its MO pair (a fitted MO
-    tensor is); z: (nz, nocc, nvir).  The order is `rpa_order`'s; ``chunk``:
-    aux indices per T intermediate, for the kernel and the plain version
-    alike (default: ``plan_aux_chunk``'s for that order).  Counted in
-    ``launches`` and ``mode_launches["rpa_exchange"]``.  Bitwise repeatable
-    on the card."""
+    tensor is); z: (nz, nocc, nvir).  ``aligned``: `rpa_aligned(B, o0, nocc,
+    v0, nvir)`, which the kernel reads in place of B (made here when not
+    given; the sigma makes it once per operator).  The order is
+    `rpa_order`'s; ``chunk``: aux indices per T intermediate, for the kernel
+    and the plain version alike (default: ``plan_aux_chunk``'s for that
+    order).  ``tiles``: the row tiles (64 or 128; 0: the kernel's own
+    choice) of the two GEMMs.  Counted in ``launches`` and
+    ``mode_launches["rpa_exchange"]``.  Bitwise repeatable on the card."""
     if min(*z.shape, B.shape[0]) < 1:
         raise ValueError(f"{NAME}: empty extent in z {tuple(z.shape)}, naux {B.shape[0]}")
     nz, nocc, nvir = z.shape
-    mode = rpa_order(nocc, nvir)
     if chunk is None:
-        n = nocc if mode == RPA_OV else nvir
+        n = min(nocc, nvir)
         chunk = plan_aux_chunk(B.shape[0], nz, n, n, z.element_size())
     if chunk < 1:
         raise ValueError(f"{NAME}: aux chunk {chunk} < 1")
     if B.device.type == "cpu":
-        return rpa_exchange_plain(B, z, o0, v0, chunk)
-    _, v = _launch(B, B, z, o0, v0, mode, chunk, False)
+        return rpa_exchange_plain(B, z, o0, v0, chunk, aligned)
+    if o0 + nocc > B.shape[1] or v0 + nvir > B.shape[2]:
+        raise ValueError(f"{NAME}: B {tuple(B.shape)} does not hold o0={o0}, v0={v0} and "
+                         f"z {tuple(z.shape)}")
+    if aligned is None:
+        aligned = rpa_aligned(B, o0, nocc, v0, nvir)
+    _check_aligned(aligned, B, z)
+    v = _launch_rpa(aligned, z, min(chunk, B.shape[0]), tiles)
     mode_launches["rpa_exchange"] += 1
     return v
 
 
+def _launch_rpa(R, z, chunk, tiles):
+    """One launch of the C entry ``rpa_exchange_*`` on the aligned copy R;
+    z goes in as z' (nz*n1 rows of ldz elements, zero-padded): z itself in
+    the RPA_OV order, z with its last two axes swapped in RPA_VO."""
+    global launches
+    _cuda.require_cuda(NAME, R, z)
+    naux, n1, ldr = R.shape
+    nz, nocc, nvir = z.shape
+    ov = rpa_order(nocc, nvir) == RPA_OV
+    n2 = nvir if ov else nocc
+    vec = 16 // z.element_size()
+    ldz = _round_up(n2, vec)
+    zq = torch.zeros((nz * n1, ldz), dtype=z.dtype, device=z.device)
+    zq[:, :n2] = (z if ov else z.transpose(1, 2)).reshape(nz * n1, n2)
+    npad = _round_up(nz * n1, vec)
+    Tb = torch.empty(chunk * n1 * npad, dtype=z.dtype, device=z.device)
+    v = torch.zeros((nz, nocc, nvir), dtype=z.dtype, device=z.device)
+    W = _cuda.workspace(v.numel(), v)
+    lib, fn = _cuda.extra_entry(NAME, _ARGS, "rpa_exchange", _RPA_ARGS, z.dtype)
+    rc = fn(R.data_ptr(), naux, n1, n2, ldr, zq.data_ptr(), ldz, nz, int(ov), v.data_ptr(),
+            Tb.data_ptr(), npad, chunk, W.data_ptr(), W.numel(), *tiles, _cuda.stream())
+    _cuda.check(lib, NAME, rc)
+    launches += 1
+    return v
+
+
 def _launch(B, Bv, z, o0, v0, mode, chunk, with_t):
-    """One launch of the C entry in ``mode``; returns (t or None, K).
-    Stage A's trial vectors go in transposed, zT[shift + k][x*J + j], with
-    (J, k) = (nocc, b) for EXCHANGE and RPA_OV and (nvir, j) for RPA_VO."""
+    """One launch of the C entry in ``mode`` (EXCHANGE); returns (t or None,
+    K).  Stage A's trial vectors go in transposed, zT[shift + b][x*nocc + j]."""
     global launches
     _cuda.require_cuda(NAME, B, Bv, z)
     naux, nmo, nmo2 = B.shape
@@ -189,24 +271,20 @@ def _launch(B, Bv, z, o0, v0, mode, chunk, with_t):
     z = z.contiguous()
     t = torch.empty((nz, naux), dtype=z.dtype, device=z.device) if with_t else None
     K = torch.zeros((nz, nocc, nvir), dtype=z.dtype, device=z.device)
-    # The half-transform reads Bv's rows from column c0 - shift (c0 = v0,
-    # o0 for RPA_VO), shift = c0 mod the 16-byte run width (so that the runs
-    # start aligned where the strides allow them); z goes in transposed, with
-    # zero rows before the first real k and rows padded to a run.  The
-    # columns before c0 are padding of the block or, where ranges overlap,
-    # live columns of another block: the zero rows cancel both.
+    # The half-transform reads Bv's rows from column v0 - shift, shift = v0
+    # mod the 16-byte run width (so that the runs start aligned where the
+    # strides allow them); z goes in transposed, with zero rows before the
+    # first real k and rows padded to a run.  The columns before v0 are
+    # padding of the block or, where ranges overlap, live columns of another
+    # block: the zero rows cancel both.
     vec = 16 // z.element_size()
-    if mode == RPA_VO:
-        c0, J, na, zk = o0, nvir, nvir, z.permute(1, 0, 2).reshape(nocc, nz * nvir)
-    else:
-        c0, J, na = v0, nocc, (nocc if mode == RPA_OV else nvir)
-        zk = z.reshape(nz * nocc, nvir).T
-    shift = c0 % vec
-    ldz = _round_up(nz * J, vec)
+    zk = z.reshape(nz * nocc, nvir).T
+    shift = v0 % vec
+    ldz = _round_up(nz * nocc, vec)
     zT = torch.zeros((shift + zk.shape[0], ldz), dtype=z.dtype, device=z.device)
-    zT[shift:, :nz * J] = zk
-    npad = _round_up(nz * na, vec)
-    Tb = torch.empty(chunk * J * npad, dtype=z.dtype, device=z.device)
+    zT[shift:, :nz * nocc] = zk
+    npad = _round_up(nz * nvir, vec)
+    Tb = torch.empty(chunk * nocc * npad, dtype=z.dtype, device=z.device)
     W = _cuda.workspace(K.numel(), K)
     lib, fn = _cuda.entry(NAME, _ARGS, B.dtype)
     rc = fn(B.data_ptr(), *B.stride(), Bv.data_ptr(), *Bv.stride(), naux, z.data_ptr(),

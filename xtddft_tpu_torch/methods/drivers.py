@@ -54,6 +54,7 @@ class ExcitationResult:
     solver: str | None = None  # which eigensolver path produced e/v
     cycles: int | None = None  # Davidson cycles of the solve
     v_xmy: np.ndarray | None = None  # (X-Y) of full TDHF/RPA (v is X+Y)
+    setup_s: dict | None = None  # seconds of the operator's one-off steps (the DF paired sigma)
 
     @property
     def e_eV(self) -> np.ndarray:
@@ -548,12 +549,12 @@ class _PairedBase:
         ref = self.ref
         dim = (ref.nc + ref.no) * ref.nv + ref.nc * (ref.no + ref.nv)
         backend = _resolve_backend(ref, self.backend, dim)
-        cycles = None
+        cycles = setup_s = None
         if backend == "df":
             op = _paired_df_op(ref, spin_adapt=self.spin_adapt)
             e, xpy_n, xmy_n, conv, label, info = _df_rpa_solve(op, self.nstates)
             xpy, xmy = op.to_blocked(xpy_n), op.to_blocked(xmy_n)
-            converged, cycles = bool(np.all(conv)), info["cycles"]
+            converged, cycles, setup_s = bool(np.all(conv)), info["cycles"], op.setup_s
         else:
             e, xpy, xmy = tdhf.solve_casida(*self._dense(ref), self.nstates)
             converged, label = True, "dense-casida"
@@ -562,7 +563,7 @@ class _PairedBase:
             osc=oscillator.spin_conserving_osc(ref, e, xpy),
             rot=oscillator.spin_conserving_rot(ref, e, xmy),
             ds2=self._ds2(ref, xpy), v_xmy=xmy, converged=converged, solver=label,
-            cycles=cycles)
+            cycles=cycles, setup_s=setup_s)
 
 
 class UTDHF(_PairedBase):

@@ -48,6 +48,7 @@ class SigmaOperator:
     _to_blocked: Callable | None = None
     device: torch.device | None = None  # where matvec computes
     dtype: torch.dtype | None = None
+    setup_s: dict = dataclasses.field(default_factory=dict)  # one-off steps of the build
 
     def init_guess(self, nstates: int, spread: float = 1e-3) -> np.ndarray:
         """Koopmans guess: unit vectors on the lowest diagonal gaps; every

@@ -25,11 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
 
-from xtddft_tpu_torch.kernels.df_exchange import df_exchange, rpa_exchange
+from xtddft_tpu_torch.kernels.df_exchange import df_exchange, rpa_aligned, rpa_exchange
 from xtddft_tpu_torch.kernels.grid_back import grid_back
 from xtddft_tpu_torch.kernels.grid_rho1 import MAX_POINTS as K2_MAX_POINTS
 from xtddft_tpu_torch.kernels.grid_rho1 import grid_rho1
@@ -285,7 +286,9 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     Coulomb back-projection and fxc term of A z, minus hyb times K1's RPA
     exchange on B (and hyb_lr times that on B_lr), with no Fock and no dA
     term.  The A half is the ``with_b=False`` matvec, launch for launch;
-    the RPA launches follow it."""
+    the RPA launches follow it, on aligned copies of each spin's ov block
+    (and of B_lr's) made here once (`df_exchange.rpa_aligned`), whose
+    seconds the operator's ``setup_s["rpa_aligned_s"]`` holds."""
     _refuse_unported(data, spmd, packed_row="7")
     nc, no, nv = data.nc, data.no, data.nv
     nmo = data.nmo
@@ -352,6 +355,18 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
 
     na = nocca * nvira
     dim = na + noccb * nvirb
+    setup_s = {}
+    if with_b:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ra, rb = rpa_aligned(B, 0, nocca, nocca, nvira), rpa_aligned(Bb, 0, noccb, noccb, nvirb)
+        if has_lr:
+            ra_lr = rpa_aligned(B_lr, 0, nocca, nocca, nvira)
+            rb_lr = rpa_aligned(Bb_lr, 0, noccb, noccb, nvirb)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        setup_s["rpa_aligned_s"] = time.perf_counter() - t0
 
     def _fxc(za, zb):
         """Grid-chunked fxc response: rho1 (K2), the functional jvp per
@@ -421,11 +436,11 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
     def _b_half(za, zb, ja, jb, fxa, fxb):
         """B z from A's Coulomb (ja, jb) and fxc (fxa, fxb) terms: the RPA
         exchange (ib|ja) z_jb in place of K, no Fock and no dA term."""
-        b1a = ja - hyb * rpa_exchange(B, za, 0, nocca)
-        b1b = jb - hyb * rpa_exchange(Bb, zb, 0, noccb)
+        b1a = ja - hyb * rpa_exchange(B, za, 0, nocca, aligned=ra)
+        b1b = jb - hyb * rpa_exchange(Bb, zb, 0, noccb, aligned=rb)
         if has_lr:
-            b1a = b1a - data.hyb_lr * rpa_exchange(B_lr, za, 0, nocca)
-            b1b = b1b - data.hyb_lr * rpa_exchange(Bb_lr, zb, 0, noccb)
+            b1a = b1a - data.hyb_lr * rpa_exchange(B_lr, za, 0, nocca, aligned=ra_lr)
+            b1b = b1b - data.hyb_lr * rpa_exchange(Bb_lr, zb, 0, noccb, aligned=rb_lr)
         if fxa is not None:
             b1a = b1a + fxa
             b1b = b1b + fxb
@@ -448,7 +463,7 @@ def xtda_sigma_df(data: DFData, spin_adapt: bool = True, spmd: bool = False,
         return np.concatenate([top, co, cv], axis=0)
 
     return SigmaOperator(matvec=matvec, hdiag=hdiag, dim=dim, _to_blocked=to_blocked,
-                         device=dev, dtype=dt)
+                         device=dev, dtype=dt, setup_s=setup_s)
 
 
 def _flip_block(data: DFData, extype: str, method: int):

@@ -9,8 +9,11 @@ contraction over the atom axis: the exchange type
 is a plain matrix product on the device, and the Coulomb type
 J[p,q] = sum_A g_oo[A,o_p,o_q] qvv[A,v_p,v_q] (g_oo = gammaJ . q_oo) is the
 hand-written gather-reduce K4 (`kernels/stda_coupling.py`), which forms
-nothing of size (atoms, rows, columns).  The data-dependent index selection
-stays on the host in numpy.
+nothing of size (atoms, rows, columns) and subtracts J from the coupling
+matrix in place.  The data-dependent index selection stays on the host in
+numpy; each CSF set's (occ, vir) lists go to the device once
+(`CSFSet.lists`), where K4, the charge gathers and the Fock blocks read
+them.
 
 Physics (the reference's `xtddft/sTDA/os_sTDA.py`): Mataga-Nishimoto-like
 atom-pair Coulomb and exchange kernels with 'os' (open-shell) or 'cs'
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from xtddft_tpu_torch import units
-from xtddft_tpu_torch.kernels.stda_coupling import j_block, j_diagonal
+from xtddft_tpu_torch.kernels.stda_coupling import CSFList, csf_list, j_block, j_diagonal
 from xtddft_tpu_torch.response.reference_state import Reference
 from xtddft_tpu_torch.stda.hardness import eta_per_atom
 
@@ -185,6 +188,8 @@ class CSFSet:
     (CV: core x common virtual; OV: open x common virtual; CO: core x open)."""
 
     idx: dict  # block -> (i_arr, a_arr)
+    # the device lists of `lists`, made once per context and device
+    _lists: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def count(self, block: str) -> int:
         return len(self.idx[block][0])
@@ -208,6 +213,19 @@ class CSFSet:
             spin.append(np.full(len(i), 0 if b in ("cva", "ova") else 1, dtype=np.int64))
         return (np.concatenate(occ).astype(np.int64), np.concatenate(vir).astype(np.int64),
                 np.concatenate(spin))
+
+    def lists(self, ctx: "STDAContext") -> tuple[CSFList, CSFList]:
+        """The alpha rows (CVa|OVa) and beta rows (COb|CVb) as K4's device
+        lists, uploaded and range-checked on the first call for a context's
+        shape and device, then reused."""
+        dev = ctx.gk.device
+        key = (ctx.nc, ctx.no, ctx.nv, str(dev))
+        if key not in self._lists:
+            occ, vir, spin = self.gather_arrays(ctx.nc, ctx.no)
+            self._lists[key] = tuple(
+                csf_list(occ[spin == s], vir[spin == s], ctx.nocc[s], ctx.nvir[s], dev)
+                for s in (0, 1))
+        return self._lists[key]
 
 
 def full_csf_set(nc: int, no: int, nv: int) -> CSFSet:
@@ -234,31 +252,23 @@ def intersect_ia(i1, a1, i2, a2, n2):
     return key // n2, key % n2
 
 
-def _spin_span(spin: np.ndarray, s: int) -> slice:
+def _spin_span(cset: CSFSet, s: int) -> slice:
     """The rows of spin ``s``: one contiguous range in the blocked order."""
-    rows = np.flatnonzero(spin == s)
-    return slice(int(rows[0]), int(rows[-1]) + 1) if rows.size else slice(0, 0)
+    na = cset.count("cva") + cset.count("ova")
+    return slice(0, na) if s == 0 else slice(na, cset.dim)
 
 
-def _qk_gather(ctx: STDAContext, occ, vir, spin) -> torch.Tensor:
-    """(natm, P) exchange-type charges of a list of CSFs."""
-    out = torch.empty((ctx.gk.shape[0], len(occ)), dtype=ctx.gk.dtype, device=ctx.gk.device)
-    for s in (0, 1):
-        sp = _spin_span(spin, s)
-        out[:, sp] = ctx.qk[s][:, occ[sp], vir[sp]]
+def _qk_gather(ctx: STDAContext, cset: CSFSet) -> torch.Tensor:
+    """(natm, P) exchange-type charges of a CSF set."""
+    out = torch.empty((ctx.gk.shape[0], cset.dim), dtype=ctx.gk.dtype, device=ctx.gk.device)
+    for s, lst in enumerate(cset.lists(ctx)):
+        out[:, _spin_span(cset, s)] = ctx.qk[s][:, lst.occ.long(), lst.vir.long()]
     return out
 
 
-def _j_block(ctx: STDAContext, s: int, o_row, v_row, o_col, v_col) -> torch.Tensor:
-    """Coulomb-type coupling J[p,q] = sum_AB qj_oo[A,o_p,o_q] gJ qj_vv[B,v_p,v_q]
-    of same-spin CSF lists, on K4."""
-    return j_block(ctx.g_oo[s], ctx.qj_vv[s], o_row, v_row, o_col, v_col)
-
-
-def _fock_block(F_occ, F_vir, o_row, v_row, o_col, v_col) -> torch.Tensor:
+def _fock_block(F_occ, F_vir, rows: CSFList, cols: CSFList) -> torch.Tensor:
     """- F_occ[o_p, o_q] delta(v) + delta(o) F_vir[v_p, v_q], on F's device."""
-    o_r, v_r, o_c, v_c = (torch.as_tensor(np.asarray(i), device=F_occ.device)
-                          for i in (o_row, v_row, o_col, v_col))
+    o_r, v_r, o_c, v_c = (i.long() for i in (rows.occ, rows.vir, cols.occ, cols.vir))
     do = (o_r[:, None] == o_c[None, :]).to(F_occ.dtype)
     dv = (v_r[:, None] == v_c[None, :]).to(F_occ.dtype)
     return -F_occ[o_r][:, o_c] * dv + do * F_vir[v_r][:, v_c]
@@ -271,23 +281,18 @@ def _velocity_correction(kdiag):
 def csf_diagonal(ctx: STDAContext, sel: CSFSet, correct: bool = False):
     """Host (iaia, iaiak): per-CSF diagonal energies (hartree) and the
     exchange diagonal that the velocity correction reads
-    (`os_sTDA.py:33-45, 686-748`); the Coulomb diagonal on K4."""
-    occ, vir, spin = sel.gather_arrays(ctx.nc, ctx.no)
-    qsel = _qk_gather(ctx, occ, vir, spin)
-    kdiag = torch.einsum("Ap,AB,Bp->p", qsel, ctx.gk, qsel).cpu().numpy()
-    jdiag = np.empty_like(kdiag)
-    fdiag = np.empty_like(kdiag)
-    off = 0
-    for b in BLOCKS:
-        n = sel.count(b)
-        s = 0 if b in ("cva", "ova") else 1
-        o = occ[off:off + n]
-        v = vir[off:off + n]
-        jdiag[off:off + n] = j_diagonal(ctx.g_oo[s], ctx.qj_vv[s], o, v).cpu().numpy()
-        fo = torch.diagonal(ctx.fock_occ[s]).cpu().numpy()
-        fv = torch.diagonal(ctx.fock_vir[s]).cpu().numpy()
-        fdiag[off:off + n] = fv[v] - fo[o]
-        off += n
+    (`os_sTDA.py:33-45, 686-748`); the Coulomb diagonal on K4, one launch
+    per spin, and one read back of the three diagonals."""
+    qsel = _qk_gather(ctx, sel)
+    parts = [torch.einsum("Ap,AB,Bp->p", qsel, ctx.gk, qsel)]
+    for s, lst in enumerate(sel.lists(ctx)):
+        fo = torch.diagonal(ctx.fock_occ[s])[lst.occ.long()]
+        fv = torch.diagonal(ctx.fock_vir[s])[lst.vir.long()]
+        parts += [j_diagonal(ctx.g_oo[s], ctx.qj_vv[s], lst), fv - fo]
+    kdiag, ja, fa, jb, fb = np.split(torch.cat(parts).cpu().numpy(),
+                                     np.cumsum([len(x) for x in parts[:-1]]))
+    jdiag = np.concatenate([ja, jb])
+    fdiag = np.concatenate([fa, fb])
     iaia = kdiag - jdiag + fdiag
     if ctx.spinadapt and ctx.no > 0:
         f1, f2, _ = sa_factors(ctx.si)
@@ -323,19 +328,14 @@ def coupling_matrix(ctx: STDAContext, rows: CSFSet, cols: CSFSet,
 
     sa_cross_sign: -1 follows X-TDA (`xtddft/XTDA.py:324-331`); +1 gives
     the reference sTDA's literal sign (`os_sTDA.py:106-115`)."""
-    occ_r, vir_r, spin_r = rows.gather_arrays(ctx.nc, ctx.no)
-    occ_c, vir_c, spin_c = cols.gather_arrays(ctx.nc, ctx.no)
-    qr = _qk_gather(ctx, occ_r, vir_r, spin_r)
-    qc = _qk_gather(ctx, occ_c, vir_c, spin_c)
-    M = qr.T @ ctx.gk @ qc
-    for s in (0, 1):
-        rr, cc = _spin_span(spin_r, s), _spin_span(spin_c, s)
-        if rr.stop == rr.start or cc.stop == cc.start:
+    M = _qk_gather(ctx, rows).T @ ctx.gk @ _qk_gather(ctx, cols)
+    for s, (lr, lc) in enumerate(zip(rows.lists(ctx), cols.lists(ctx))):
+        if not (len(lr) and len(lc)):
             continue
-        M[rr, cc] -= _j_block(ctx, s, occ_r[rr], vir_r[rr], occ_c[cc], vir_c[cc])
+        rr, cc = _spin_span(rows, s), _spin_span(cols, s)
+        j_block(ctx.g_oo[s], ctx.qj_vv[s], lr, lc, out=M[rr, cc])
         if include_fock:
-            M[rr, cc] += _fock_block(ctx.fock_occ[s], ctx.fock_vir[s],
-                                     occ_r[rr], vir_r[rr], occ_c[cc], vir_c[cc])
+            M[rr, cc] += _fock_block(ctx.fock_occ[s], ctx.fock_vir[s], lr, lc)
     if include_sa and ctx.spinadapt and ctx.no > 0:
         f1, f2, fx = sa_factors(ctx.si)
         fx = abs(fx) * sa_cross_sign
@@ -385,8 +385,7 @@ def assemble_A(ctx: STDAContext, sel: CSFSet, correct: bool = False,
     on the device."""
     A = coupling_matrix(ctx, sel, sel, sa_cross_sign=sa_cross_sign)
     if correct:
-        occ, vir, spin = sel.gather_arrays(ctx.nc, ctx.no)
-        qsel = _qk_gather(ctx, occ, vir, spin)
+        qsel = _qk_gather(ctx, sel)
         kd = torch.einsum("Ap,AB,Bp->p", qsel, ctx.gk, qsel)
         A.diagonal().add_(_velocity_correction(kd))
     return A
