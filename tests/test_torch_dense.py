@@ -17,6 +17,8 @@ of its dense drivers, which the in-core backend matches to the Davidson's
 tolerance.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,32 @@ FH = "F 0 0 0; H 0 0 1.0"
 OH = "O 0 0 0; H 0 0 0.97"
 ROOTS_EV = 1e-6
 PROPS = 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def mcol_kernels_once():
+    """Each package's multicollinear kernel of one grid and density is
+    computed once for the file (the up and down flip builders share it),
+    keyed by the bytes of its weights and densities and the port's batch
+    size."""
+    from xtddft_tpu.xc import mcol as jax_mcol
+    from xtddft_tpu_torch.xc import mcol
+
+    real_jax, real_port, cache = jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol, {}
+
+    def once(real, tag):
+        def cached(spec, weights, rho0, nt=20):
+            key = (tag, mcol.MCOL_POINTS, spec.name, nt) + tuple(
+                hashlib.sha1(np.ascontiguousarray(np.asarray(a)).tobytes()).hexdigest()
+                for a in (weights, *rho0))
+            if key not in cache:
+                cache[key] = real(spec, weights, rho0, nt)
+            return cache[key]
+        return cached
+
+    jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol = once(real_jax, "jax"), once(real_port, "port")
+    yield
+    jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol = real_jax, real_port
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@
 """
 
 import dataclasses
+import hashlib
 import pathlib
 
 import numpy as np
@@ -83,22 +84,37 @@ def _carry(jdata):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def jax_mcol_kernel_once():
-    """The JAX multicollinear kernel of one grid is computed once for the
-    whole file (each call re-traces its vmapped Hessian)."""
+def mcol_kernels_once():
+    """Each package's multicollinear kernel is computed once per input for
+    the whole file (each JAX call re-traces its vmapped Hessian), keyed by
+    the bytes of its weights and densities (the up and down flips, the
+    meta-GGA cases and the span test share theirs) and, for the port, by
+    its batch size, so that the chunked run is computed anew."""
     from xtddft_tpu.xc import mcol as jax_mcol
+    from xtddft_tpu_torch.xc import mcol
 
-    real, cache = jax_mcol.sf_kernel_mcol, {}
+    real_jax, real_port, cache = jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol, {}
 
-    def cached(spec, weights, rho0, nt=20):
-        key = (spec.name, id(weights), nt)
+    def key_of(spec, weights, rho0, nt):
+        return (spec.name, nt) + tuple(
+            hashlib.sha1(np.ascontiguousarray(np.asarray(a)).tobytes()).hexdigest()
+            for a in (weights, *rho0))
+
+    def jax_kernel(spec, weights, rho0, nt=20):
+        key = ("jax",) + key_of(spec, weights, rho0, nt)
         if key not in cache:
-            cache[key] = real(spec, weights, rho0, nt)
+            cache[key] = real_jax(spec, weights, rho0, nt)
         return cache[key]
 
-    jax_mcol.sf_kernel_mcol = cached
+    def port_kernel(spec, weights, rho0, nt=20):
+        key = ("port", mcol.MCOL_POINTS) + key_of(spec, weights, rho0, nt)
+        if key not in cache:
+            cache[key] = real_port(spec, weights, rho0, nt)
+        return cache[key]
+
+    jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol = jax_kernel, port_kernel
     yield
-    jax_mcol.sf_kernel_mcol = real
+    jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol = real_jax, real_port
 
 
 @pytest.fixture(scope="module")

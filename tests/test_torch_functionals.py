@@ -29,8 +29,11 @@ largest element) from the same JAX sigma run op by op under
 ``jax.disable_jit()``, which the port matches to 7e-15 (measured, 33 s of
 eager JAX: not in the suite); the X-TDA case is held at 1e-8 for that.
 
-One JAX SCF and one JAX DF build for the whole file.
+One JAX SCF and one JAX DF build for the whole file; each multicollinear
+kernel and the JAX dense X-TDA matrix are built once (``builds_once``).
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -242,23 +245,47 @@ def test_tau_term_ao_matches_jax_contract_vmat():
 
 # ---- (c), (d) OH/STO-3G ROKS/TPSSh ----
 
+def _bytes_key(*arrays):
+    return tuple(hashlib.sha1(np.ascontiguousarray(np.asarray(a)).tobytes()).hexdigest()
+                 for a in arrays)
+
+
 @pytest.fixture(scope="module", autouse=True)
-def jax_mcol_kernel_once():
-    """The JAX multicollinear kernel of one grid and density is computed once
-    for the file (the two dense flip drivers share it)."""
+def builds_once():
+    """The expensive builds are made once for the file: the JAX
+    multicollinear kernel of one grid and density (the two dense flip
+    drivers share it), the port's of the same inputs (its dense and in-core
+    flip drivers share it; keyed by the bytes of its inputs), and the JAX
+    dense X-TDA matrix of one Reference (the dense and in-core root cases
+    are both held to it)."""
     from xtddft_tpu.xc import mcol as jax_mcol
+    from xtddft_tpu_torch.xc import mcol
 
-    real, cache = jax_mcol.sf_kernel_mcol, {}
+    real_jax, real_port, real_xtda = (jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol,
+                                      jax_dense.xtda_dense)
+    cache = {}
 
-    def cached(spec, weights, rho0, nt=20):
-        key = (spec.name, id(weights), tuple(id(r) for r in rho0), nt)
+    def once(key, make):
         if key not in cache:
-            cache[key] = real(spec, weights, rho0, nt)
+            cache[key] = make()
         return cache[key]
 
-    jax_mcol.sf_kernel_mcol = cached
+    def jax_kernel(spec, weights, rho0, nt=20):
+        return once(("jax", spec.name, nt) + _bytes_key(weights, *rho0),
+                    lambda: real_jax(spec, weights, rho0, nt))
+
+    def port_kernel(spec, weights, rho0, nt=20):
+        return once(("port", mcol.MCOL_POINTS, spec.name, nt) + _bytes_key(weights, *rho0),
+                    lambda: real_port(spec, weights, rho0, nt))
+
+    def jax_xtda(ref, spin_adapt=True):
+        return once(("xtda", id(ref), spin_adapt), lambda: real_xtda(ref, spin_adapt))
+
+    jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol = jax_kernel, port_kernel
+    jax_dense.xtda_dense = jax_xtda
     yield
-    jax_mcol.sf_kernel_mcol = real
+    jax_mcol.sf_kernel_mcol, mcol.sf_kernel_mcol = real_jax, real_port
+    jax_dense.xtda_dense = real_xtda
 
 
 @pytest.fixture(scope="module")

@@ -63,6 +63,16 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.props.export",
     "xtddft_tpu_torch.methods.drivers",
     "xtddft_tpu_torch.kernels",
+    "xtddft_tpu_torch.ints.two_electron",
+    "xtddft_tpu_torch.ints.soc_ints",
+    "xtddft_tpu_torch.scf.stability",
+    "xtddft_tpu_torch.soc",
+    "xtddft_tpu_torch.soc.x2c",
+    "xtddft_tpu_torch.soc.somf",
+    "xtddft_tpu_torch.soc.si",
+    "xtddft_tpu_torch.soc.pipeline",
+    "xtddft_tpu_torch.soc.zeeman",
+    "xtddft_tpu_torch.soc.interop",
 ]
 
 _JAXISH = re.compile(

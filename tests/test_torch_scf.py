@@ -192,10 +192,14 @@ def test_unported_parts_raise(kw):
     """(d) Each part the port does not have yet raises, naming its item.  The
     in-core ERIs are ported since (tests/test_torch_incore.py): that case
     now builds an in-core Env.  The meta-GGA SCF is ported since
-    (tests/test_torch_functionals.py)."""
+    (tests/test_torch_functionals.py).  x2c is ported since
+    (tests/test_torch_soc.py): that case now builds an x2c Env."""
     kw = {"xc": "b3lyp", **kw}
     if kw.get("df") is False:
         assert not SCF(_fh(), "roks", grid_level=1, device="cpu", **kw).env.df
+        return
+    if kw.get("x2c"):
+        assert SCF(_fh(), "roks", grid_level=1, device="cpu", **kw).env.x2c
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SCF(_fh(), "roks", grid_level=1, device="cpu", **kw)

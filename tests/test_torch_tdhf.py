@@ -70,6 +70,23 @@ def _carry(jdata, **replace):
                                                device="cpu", dtype=torch.float64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_xtdhf_pencil_once():
+    """The JAX dense X-TDHF pencil of one mean field is built once for the
+    file: the pencil test and the JAX dense driver of the DF-driver test
+    share it (each build evaluates the fxc tensor on the grid)."""
+    real, cache = jax_tdhf.xtdhf_dense, {}
+
+    def cached(ref):
+        if id(ref.mf) not in cache:
+            cache[id(ref.mf)] = real(ref)
+        return cache[id(ref.mf)]
+
+    jax_tdhf.xtdhf_dense = cached
+    yield
+    jax_tdhf.xtdhf_dense = real
+
+
 @pytest.fixture(scope="module")
 def mfs(fh_roks_df, tmp_path_factory):
     """{name: (JAX MeanField, port MeanField)}, all converged through the DF SCF."""

@@ -14,9 +14,9 @@ meta-GGA adds the kinetic-energy density (K2's tau row) and its potential
 ROHF/ROKS orbitals are canonicalized with the Roothaan effective Fock (the
 pyscf.scf.rohf convention, which the spin-adapted dA terms assume).
 
-Not ported: the JAX package's mixed-precision device engine
-(``engine="device"``, `scf/jk_device.py`) and x2c; each raises
-``NotImplementedError`` naming its item.
+``x2c=True`` takes the Env's sfX2C core Hamiltonian.  Not ported: the JAX
+package's mixed-precision device engine (``engine="device"``,
+`scf/jk_device.py`), which raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -147,9 +147,6 @@ class SCF:
                 "in f64 on the card")
         if engine != "host":
             raise ValueError(f"unknown engine {engine!r}")
-        if x2c:
-            raise NotImplementedError(
-                "x2c Hamiltonian: not ported yet (ROADMAP queue 1, item 12)")
         self.mol = mol
         self.kind = kind
         self.v_ext = None if v_ext is None else np.asarray(v_ext)
@@ -162,7 +159,7 @@ class SCF:
 
                 df = build_layout(mol).nao > 120
             env = Env(mol, grid_level=grid_level, df=df, aux_beta=aux_beta,
-                      aux_mode=aux_mode, device=device)
+                      aux_mode=aux_mode, x2c=x2c, device=device)
         self.env = env
         self.conv_tol = 1e-11
         self.conv_tol_grad = 1e-7

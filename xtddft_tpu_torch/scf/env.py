@@ -15,7 +15,8 @@ package's `scf/env.py` with its two J/K routes:
   virtual range, density matrices as its trial vectors).
 
 The fitted tensors are lazy on either route, so a DF response can run on an
-in-core Env.  x2c is not ported yet.
+in-core Env.  ``x2c=True`` replaces T + V by the picture-changed sfX2C core
+Hamiltonian (`soc/x2c.py sfx2c_hcore`), as in JAX.
 """
 
 from __future__ import annotations
@@ -59,9 +60,6 @@ class Env:
     dtype: torch.dtype | None = None
 
     def __post_init__(self):
-        if self.x2c:
-            raise NotImplementedError(
-                "x2c Hamiltonian: not ported yet (ROADMAP queue 1, item 12)")
         self.device, self.dtype = config.resolve(self.device, self.dtype)
         self.layout = build_layout(self.mol)
         self.nao = self.layout.nao
@@ -82,7 +80,18 @@ class Env:
 
     @cached_property
     def hcore(self):
-        return self.tensor(kinetic(self.layout) + nuclear_attraction(self.layout))
+        """T + V, or with ``x2c`` the spin-free X2C one-electron Hamiltonian
+        (decoupled in the uncontracted basis, JAX `scf/env.py:71-90`);
+        every consumer (the SCF's Fock, the ROHF Fock of the spin-adapted
+        response) takes it from here."""
+        if self.x2c:
+            from xtddft_tpu_torch import units
+            from xtddft_tpu_torch.soc.x2c import sfx2c_hcore
+
+            h = sfx2c_hcore(self.layout, units.C_AU)
+        else:
+            h = kinetic(self.layout) + nuclear_attraction(self.layout)
+        return self.tensor(h)
 
     @cached_property
     def grid(self):
@@ -100,6 +109,10 @@ class Env:
     @cached_property
     def dip(self):
         return self.tensor(dipole(self.layout))
+
+    def dip_about(self, origin):
+        """(3, nao, nao) dipole integrals about ``origin``."""
+        return self.tensor(dipole(self.layout, origin=origin))
 
     @cached_property
     def ipovlp(self):
