@@ -6,7 +6,7 @@ Phases (any failure raises; the script exits non-zero and prints no result):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    no CUDA device is a failure;
-1. build the native integral engine and the CUDA kernels K1-K4 from the
+1. build the native integral engine and the CUDA kernels K1-K5 from the
    checkout's sources, all at once, with the seconds each build took;
 2. each kernel against its plain torch version at the main path's shapes
    (TTM/STO-3G and the nmo=1000 bench operator; K2 and K3 on one 4096-point
@@ -149,6 +149,27 @@ Phases (any failure raises; the script exits non-zero and prints no result):
    ROHF, 8 states) against the JAX levels (0.01 cm^-1), with the seconds of
    every stage (x2c core Hamiltonian, SCF, stability, each response, the 1e
    and 2e parts of Vso, SI) and the kernels' launches per stage.
+
+13. analytic excited-state nuclear gradients, f64 (after phase 12), on
+   CH2O+/cc-pVDZ (38 AO, d shells) at the geometry of
+   ``tests/data/golden_ch2o_grad.json``: ROHF, then
+   ``ExcitedGradients(mf, "xcis").kernel(0)`` (its states from the dense
+   X-TDA driver, the Z-vector by CG on torch.func Hessian actions, one
+   reverse pass over the coordinates whose ERI derivative is K5
+   `eri_grad`) against the golden's analytic gradient (1e-6 Ha/bohr) and
+   its 24-point central differences (1e-5, tests/test_grad_analytic.py's
+   gate), its excitation energy (1e-4 eV) and translational invariance
+   (1e-9); ``hf_gradient`` (its two-electron term one K5 call) against
+   ``scf_gradient`` (1e-8); then ROKS/B3LYP at grid level 1 (its SCF on K2
+   hermitian and K3) and its X-TDA state 0's analytic gradient against the
+   port's own central differences (h = 1e-3 bohr, ``XTDA`` with the auto
+   backend) over the symmetry-unique nonzero components (C z, O z, H1 x,
+   H1 z; 2e-5 Ha/bohr).  Each gradient's stages (states, Z-vector
+   right-hand side, CG iterations and seconds, the reverse pass) and peak
+   memory are printed; K5 must launch in every gradient, K2 and K3 in the
+   ROKS SCF.  Phase 2 holds K5 against its plain version (the autograd vjp
+   of `ints/diffints.py`'s ERIs) on a seeded 8-fold symmetric Gamma at this
+   basis (relative 1e-12, bitwise repeatable) with its times and bound.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes every number to a
@@ -749,6 +770,7 @@ def phase2() -> dict:
     del ch2o_table
     torch.cuda.empty_cache()
     _stda_checks(checks, g)
+    _k5_check(checks)
     return {"checks": checks}
 
 
@@ -1625,6 +1647,197 @@ def phase12(mf_ttm) -> dict:
             "h2": _h2_saddle(), "as": _as_leg(gold["as_scf"]), "o": _o_leg(gold["o_socsi"])}
 
 
+# phase 13: analytic excited-state gradients at CH2O+/cc-pVDZ.  The golden is
+# the JAX package's X-CIS state-0 gradient and its 24-point central
+# differences (tests/test_grad_analytic.py:301-325)
+CH2O_GRAD_GOLDEN = ROOT / "tests" / "data" / "golden_ch2o_grad.json"
+K5_RTOL = 1e-12
+GRAD_GATE_ANALYTIC = 1e-6  # Ha/bohr, against the JAX analytic gradient
+GRAD_GATE_FD = 1e-5  # against the golden's central differences (the JAX slow test's gate)
+GRAD_GATE_EV = 1e-4
+GRAD_GATE_TRANSL = 1e-9
+GRAD_GATE_HF = 1e-8  # hf_gradient against scf_gradient
+GRAD_GATE_DFT_FD = 2e-5  # tests/test_grad_analytic.py:144
+DFT_FD_COMPONENTS = ((0, 2), (1, 2), (2, 0), (2, 2))  # C z, O z, H1 x, H1 z
+
+
+def _ch2o_mol(gold):
+    from xtddft_tpu_torch.chem import Molecule
+
+    return Molecule.from_atoms(gold["geometry"], basis="cc-pvdz", charge=1, spin=1)
+
+
+def _k5_check(checks):
+    """K5 against its plain version at CH2O+/cc-pVDZ on a seeded 8-fold
+    symmetric Gamma: relative error, a second launch bitwise, the call's
+    CUDA-event time (its host tables included) and the kernel's alone
+    (``kernel_ms``, tables made), the plain version's (one call: it takes
+    seconds), and the bound from the kernel's operation count on this
+    basis and Gamma's bytes.  No single PyTorch call computes it."""
+    from xtddft_tpu_torch.ints import build_layout
+    from xtddft_tpu_torch.kernels import eri_grad as k5
+    from xtddft_tpu_torch.response.flops import bound_ms
+
+    lay = build_layout(_ch2o_mol(json.loads(CH2O_GRAD_GOLDEN.read_text())))
+    rng = np.random.default_rng(13)
+    G = k5.symmetrize8(torch.as_tensor(rng.standard_normal((lay.nao,) * 4), device="cuda"))
+    got = k5.eri_grad(lay, G)
+    again = k5.eri_grad(lay, G)
+    _sync()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = k5.eri_grad_plain(lay, G)
+    b.record()
+    _sync()
+    p = k5.GradPlan(lay, G.device)
+    Gc = k5.to_cart(p, G)
+    rec = {"kernel": k5.NAME, "shape": "ch2o_ccpvdz", "dtype": "float64", "nao": lay.nao,
+           "ncart": p.nc, "bra_pairs": int(p.bra_rows.shape[0]),
+           "ket_pairs": int(p.ket_rows.shape[0]), "flops": p.flops, "rtol": K5_RTOL,
+           "fixed_order": True, "fixed_repeats_bitwise": bool(torch.equal(got, again)),
+           "plain_ms": a.elapsed_time(b), "ms": time_ms(lambda: k5.eri_grad(lay, G)),
+           "kernel_ms": time_ms(lambda: k5.launch(p, Gc)), "library_ms": None}
+    rec["max_abs_err"], rec["rel_err"] = rel_err(got, want)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(p.flops, p.nbytes(lay.nao), "float64")
+    rec["transl_invariance"] = float(got.sum(0).abs().max())
+    _log("phase 2", json.dumps(rec))
+    if not rec["rel_err"] <= K5_RTOL:
+        raise AssertionError(f"eri_grad disagrees with its plain version: {rec}")
+    if not rec["fixed_repeats_bitwise"]:
+        raise AssertionError(f"eri_grad: two launches differ: {rec}")
+    checks.append(rec)
+
+
+def _gradient_run(name, eg, k5_ms, state=0):
+    """One analytic gradient with its stages, launches and peak memory (its
+    own: above what earlier phases hold); ``k5_ms``: phase 2's time of K5's
+    launch at this basis, printed beside the stages."""
+    from xtddft_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s = time.perf_counter()
+    g, w = eg.kernel(state)
+    _sync()
+    rec = {"xdim": eg.xdim, "rotation_pairs": eg.nk, "seconds": time.perf_counter() - s,
+           **eg.stats, "launches": kernels.launch_counts(),
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9, "omega": w,
+           "grad": g.tolist(), "transl_invariance": float(np.abs(g.sum(axis=0)).max())}
+    _log(f"phase 13 {name}", json.dumps(rec))
+    _log(f"phase 13 {name} stages (s): states {rec['states_s']:.2f}, z-vector rhs "
+         f"{rec['zvector_rhs_s']:.2f}, cg {rec['cg_iterations']} iterations "
+         f"{rec['zvector_cg_s']:.2f}, reverse pass {rec['phi_grad_s']:.2f} (K5 "
+         f"{k5_ms:.2f} ms of it, phase 2); peak {rec['peak_gb']:.2f} GB")
+    return rec, g, w
+
+
+def _ch2o_hf_leg(gold, k5_ms) -> dict:
+    """CH2O+ ROHF X-CIS state 0 against the golden; hf_gradient against
+    scf_gradient."""
+    from xtddft_tpu_torch import kernels, units
+    from xtddft_tpu_torch.grad import ExcitedGradients, hf_gradient, scf_gradient
+    from xtddft_tpu_torch.scf import ROHF
+
+    s = time.perf_counter()
+    mf = ROHF(_ch2o_mol(gold), device="cuda").kernel()
+    _sync()
+    rec = {"scf_s": time.perf_counter() - s, "e_scf": mf.e_tot, "converged": mf.converged,
+           "dev_e_scf_golden_ha": mf.e_tot - gold["e_scf"]}
+    xc, g, w = _gradient_run("hf xcis", ExcitedGradients(mf, "xcis"), k5_ms)
+    rec["xcis"] = xc
+    rec["launches"] = xc["launches"]
+    rec["e0_eV"] = w * units.HA2EV
+    rec["dev_analytic"] = float(np.abs(g - np.asarray(gold["grad_analytic"])).max())
+    rec["dev_fd"] = float(np.abs(g - np.asarray(gold["grad_fd_h2e-3bohr"])).max())
+    rec["dev_e0_eV"] = rec["e0_eV"] - gold["e0_eV"]
+    for label, fn in (("hf_gradient", hf_gradient), ("scf_gradient", scf_gradient)):
+        kernels.reset_launch_counts()
+        s = time.perf_counter()
+        rec[label] = fn(mf)
+        _sync()
+        rec[f"{label}_s"] = time.perf_counter() - s
+        rec[f"launches_{label}"] = kernels.launch_counts()
+    rec["dev_hf_vs_scf_gradient"] = float(np.abs(rec["hf_gradient"] - rec["scf_gradient"]).max())
+    rec["hf_gradient"], rec["scf_gradient"] = (rec["hf_gradient"].tolist(),
+                                               rec["scf_gradient"].tolist())
+    _log("phase 13 hf", json.dumps({k: v for k, v in rec.items() if k != "xcis"}))
+    _log(f"phase 13 hf: X-CIS - JAX analytic {rec['dev_analytic']:.3e}, - JAX FD "
+         f"{rec['dev_fd']:.3e} Ha/bohr, e0 - golden {rec['dev_e0_eV']:.2e} eV, E_scf - golden "
+         f"{rec['dev_e_scf_golden_ha']:.2e} Ha; hf_gradient - scf_gradient "
+         f"{rec['dev_hf_vs_scf_gradient']:.2e}")
+    failed = []
+    if not mf.converged:
+        failed.append("SCF not converged")
+    if not rec["dev_analytic"] <= GRAD_GATE_ANALYTIC:
+        failed.append(f"{rec['dev_analytic']} Ha/bohr from the JAX analytic gradient")
+    if not rec["dev_fd"] <= GRAD_GATE_FD:
+        failed.append(f"{rec['dev_fd']} Ha/bohr from the golden's central differences")
+    if not abs(rec["dev_e0_eV"]) <= GRAD_GATE_EV:
+        failed.append(f"e0 {rec['e0_eV']} eV vs {gold['e0_eV']}")
+    if not xc["transl_invariance"] <= GRAD_GATE_TRANSL:
+        failed.append(f"translational invariance {xc['transl_invariance']}")
+    if not rec["dev_hf_vs_scf_gradient"] <= GRAD_GATE_HF:
+        failed.append(f"hf_gradient vs scf_gradient {rec['dev_hf_vs_scf_gradient']}")
+    for label, n in (("xcis", xc["launches"]), ("hf_gradient", rec["launches_hf_gradient"]),
+                     ("scf_gradient", rec["launches_scf_gradient"])):
+        if n["eri_grad"] < 1:
+            failed.append(f"K5 not launched in the {label} gradient")
+    if failed:
+        raise AssertionError(f"phase 13 CH2O+ ROHF: {failed}")
+    return rec
+
+
+def _ch2o_dft_leg(gold, k5_ms) -> dict:
+    """CH2O+ ROKS/B3LYP (grid 1) X-TDA state 0: the analytic gradient against
+    the port's central differences on the symmetry-unique components."""
+    from xtddft_tpu_torch import kernels
+    from xtddft_tpu_torch.grad import ExcitedGradients, fd_excited_gradient
+    from xtddft_tpu_torch.methods.drivers import XTDA
+    from xtddft_tpu_torch.scf import ROKS
+
+    kernels.reset_launch_counts()
+    s = time.perf_counter()
+    mf = ROKS(_ch2o_mol(gold), xc="b3lyp", grid_level=1, device="cuda").kernel()
+    _sync()
+    rec = {"scf_s": time.perf_counter() - s, "e_scf": mf.e_tot, "converged": mf.converged,
+           "scf_launches": kernels.launch_counts()}
+    xt, g, w = _gradient_run("dft xtda", ExcitedGradients(mf, "xcis"), k5_ms)
+    rec["xtda"] = xt
+    rec["launches"] = xt["launches"]
+    s = time.perf_counter()
+    gf = fd_excited_gradient(mf, lambda m: XTDA(m, nstates=1, backend="auto"), state=0, h=1e-3,
+                             components=DFT_FD_COMPONENTS)
+    rec["fd_s"] = time.perf_counter() - s
+    rec["fd"] = {f"{a},{x}": float(gf[a, x]) for a, x in DFT_FD_COMPONENTS}
+    rec["dev_fd"] = max(abs(float(g[a, x] - gf[a, x])) for a, x in DFT_FD_COMPONENTS)
+    _log("phase 13 dft", json.dumps({k: v for k, v in rec.items() if k != "xtda"}))
+    _log(f"phase 13 dft: X-TDA analytic - FD {rec['dev_fd']:.3e} Ha/bohr over "
+         f"{len(DFT_FD_COMPONENTS)} components, |sum_A g_A| {xt['transl_invariance']:.2e}, "
+         f"FD {rec['fd_s']:.1f} s")
+    failed = []
+    if not mf.converged:
+        failed.append("SCF not converged")
+    if not rec["dev_fd"] <= GRAD_GATE_DFT_FD:
+        failed.append(f"{rec['dev_fd']} Ha/bohr from the central differences")
+    if rec["launches"]["eri_grad"] < 1:
+        failed.append("K5 not launched in the gradient")
+    idle = [k for k in ("grid_rho1", "grid_back") if rec["scf_launches"][k] < 1]
+    if idle:
+        failed.append(f"not launched in the ROKS SCF: {idle}")
+    if failed:
+        raise AssertionError(f"phase 13 CH2O+ ROKS: {failed}")
+    return rec
+
+
+def phase13(k5_ms: float) -> dict:
+    """Analytic excited-state gradients at CH2O+/cc-pVDZ: the ROHF X-CIS leg
+    against the JAX golden, the ROKS/B3LYP X-TDA leg against the port's
+    central differences (``k5_ms``: phase 2's K5 time at this basis)."""
+    gold = json.loads(CH2O_GRAD_GOLDEN.read_text())
+    return {"hf": _ch2o_hf_leg(gold, k5_ms), "dft": _ch2o_dft_leg(gold, k5_ms)}
+
+
 def _roks_gradient(scf, mf, va, vb):
     """|g| of the Roothaan Fock of the potentials (va, vb) at mf's density,
     the SCF's own convergence measure (`scf/driver.py`)."""
@@ -2346,7 +2559,7 @@ def phase9() -> dict:
 
 
 def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
-    """Phases 0-12 into ``record``, in the order that lets the later ones
+    """Phases 0-13 into ``record``, in the order that lets the later ones
     reuse what the earlier built; the seconds since the start after each."""
     def done(name):
         _log(f"{name} done at {time.perf_counter() - t_start:.1f} s")
@@ -2370,6 +2583,9 @@ def _run_phases(record: dict, t_start: float, out: str | None = None) -> None:
     done("phase 11")
     record["stability_soc"] = phase12(ref.mf)
     done("phase 12")
+    k5 = [c for c in record["kernels"]["checks"] if c["kernel"] == "eri_grad"][0]
+    record["gradients"] = phase13(k5["kernel_ms"])
+    done("phase 13")
     vectors = None if out is None else pathlib.Path(out).with_name(
         pathlib.Path(out).stem + "_dzp_vectors.npz")
     if vectors is not None:
@@ -2507,6 +2723,8 @@ def main(argv=None) -> int:
             "launches_stability": p12["ttm_stability"]["launches"][m.NAME],
             "launches_per_hessian_action": p12["ttm_stability"]["action_launches"][m.NAME],
             "launches_socsi_as": {leg: n[m.NAME] for leg, n in p12["as"]["launches"].items()},
+            # phase 13: the CH2O+ ROKS SCF of the DFT gradient leg
+            "launches_grad_dft_scf": record["gradients"]["dft"]["scf_launches"][m.NAME],
         })
     # K1's RPA exchange mode (phase 11's B half), at the TTM alpha block
     # (nz 20, f64), the bench block (f32) and TTM/dzp's alpha block (f64)
@@ -2541,6 +2759,21 @@ def main(argv=None) -> int:
         **{f"diagonal_{k}": k4_check("ttm_stda_diagonal")[k]
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "kernel_ms", "call_ms")},
         "launches_ch2o_sutda": record["small"]["ch2o"]["launches"][k4.NAME],
+    })
+    # K5: phase 2's check at CH2O+/cc-pVDZ; its launches in phase 13's
+    # gradients (the ROHF X-CIS gradient is the main path's)
+    from xtddft_tpu_torch.kernels import eri_grad as k5
+
+    k5c = [c for c in checks if c["kernel"] == k5.NAME][0]
+    p13 = record["gradients"]
+    entries.append({
+        "name": k5.NAME, "route": k5.ROUTE, "source": k5.SOURCE, "replaces": k5.REPLACES,
+        "launches": p13["hf"]["launches"][k5.NAME],
+        **{k: k5c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "kernel_ms")},
+        "launches_hf_gradient": p13["hf"]["launches_hf_gradient"][k5.NAME],
+        "launches_scf_gradient": p13["hf"]["launches_scf_gradient"][k5.NAME],
+        "launches_dft_gradient": p13["dft"]["launches"][k5.NAME],
     })
     record["total_s"] = time.perf_counter() - t_start
     _log("total seconds", record["total_s"])

@@ -73,6 +73,14 @@ SLICE_MODULES = [
     "xtddft_tpu_torch.soc.pipeline",
     "xtddft_tpu_torch.soc.zeeman",
     "xtddft_tpu_torch.soc.interop",
+    "xtddft_tpu_torch.grad",
+    "xtddft_tpu_torch.grad.lagrangian",
+    "xtddft_tpu_torch.grad.xcgrid",
+    "xtddft_tpu_torch.grad.x2c_diff",
+    "xtddft_tpu_torch.grad.analytic",
+    "xtddft_tpu_torch.grad.fd",
+    "xtddft_tpu_torch.ints.diffints",
+    "xtddft_tpu_torch.kernels.eri_grad",
 ]
 
 _JAXISH = re.compile(

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4, every mode, against their plain torch versions, on a GPU.
+"""The CUDA kernels K1-K5, every mode, against their plain torch versions, on a GPU.
 
 f64 to relative 1e-11 and f32 to 1e-4 of the largest entry (the summation
 order differs); the SCF's fixed-order modes also repeat bitwise.  Skips without a card.  The machine with the card has no
@@ -15,6 +15,7 @@ import torch
 from xtddft_tpu_torch.kernels import df_exchange as k1
 from xtddft_tpu_torch.kernels import grid_back as k3
 from xtddft_tpu_torch.kernels import grid_rho1 as k2
+from xtddft_tpu_torch.kernels import eri_grad as k5
 from xtddft_tpu_torch.kernels import stda_coupling as k4
 
 # (naux, nmo, nocc, nz, gc), nvir = nmo - nocc
@@ -569,6 +570,30 @@ def test_stda_coupling_edges(cuda, dtype, rtol):
     with pytest.raises(ValueError):  # a list checked against other extents
         k4.j_block(g, qv, k4.csf_list([1], [1], nocc + 1, nvir, cuda), lst([1], [1]))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("atoms,basis,omega", [
+    ("O 0 0 0; H 0 0 0.96; H 0.93 0 -0.25", "sto-3g", 0.0),
+    ("N 0 0 0; H 0 0 1.9", "cc-pvdz", 0.0),
+    ("N 0 0 0; H 0 0 1.9", "cc-pvdz", 0.33),
+], ids=["h2o_sto3g", "nh_ccpvdz", "nh_ccpvdz_lr"])
+def test_eri_grad_matches_plain(cuda, atoms, basis, omega):
+    """K5 against the autograd vjp of diffints' ERIs (relative 1e-12; d
+    shells reach the kernel's L = 9), bitwise repeatable, counted once per
+    call; a Gamma of any symmetry."""
+    from xtddft_tpu_torch.chem import Molecule
+    from xtddft_tpu_torch.ints import build_layout
+
+    lay = build_layout(Molecule.from_atoms(atoms, basis=basis, spin=1 if "N" in atoms else 0))
+    rng = np.random.default_rng(0)
+    G = torch.as_tensor(rng.normal(size=(lay.nao,) * 4), device=cuda)
+    before = k5.launches
+    g = k5.eri_grad(lay, G, omega)
+    assert k5.launches == before + 1
+    _rel_close(g, k5.eri_grad_plain(lay, G, omega), 1e-12)
+    assert torch.equal(g, k5.eri_grad(lay, G, omega))
+    assert float(g.sum(0).abs().max()) <= 1e-12 * float(g.abs().max())
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -235,12 +235,21 @@ def _herm_recursion(L: int):
     return axis, prev, prev2, coef
 
 
-def hermite_coulomb_t(L: int, p: torch.Tensor, PC: torch.Tensor) -> torch.Tensor:
+def hermite_coulomb_t(L: int, p: torch.Tensor, PC: torch.Tensor, omega: float = 0.0,
+                      boys=_boys_t) -> torch.Tensor:
     """R^0_{tuv}(p, PC) for all t+u+v <= L, (nherm(L), N): the recursion of
     `mcmurchie.hermite_coulomb`, one vectorized step per order.  The
     indices of order <= L - m are a prefix of `herm_indices(L)`, so order m
-    is a gather from order m + 1."""
-    F = _boys_t(L, p * torch.sum(PC * PC, dim=1))
+    is a gather from order m + 1.  ``omega`` > 0 attenuates the kernel to
+    erf(omega r)/r: F_m(T) -> s^(m+1/2) F_m(s T), s = omega^2 / (omega^2 +
+    p).  ``boys``: the Boys function, (mmax, x) -> (mmax+1, N)."""
+    T = p * torch.sum(PC * PC, dim=1)
+    if omega and omega > 0.0:
+        s = omega * omega / (omega * omega + p)
+        n = torch.arange(L + 1, dtype=p.dtype, device=p.device)[:, None]
+        F = boys(L, s * T) * s[None, :] ** (n + 0.5)
+    else:
+        F = boys(L, T)
     axis, prev, prev2, coef = (torch.as_tensor(v, device=p.device)
                                for v in _herm_recursion(L))
     coef = coef.to(p.dtype)

@@ -6,6 +6,7 @@
 | `grid_rho1`   | `response/sigma_df.py:495` `_fxc.rho1`, `:857`/`:1105` the flip transition density | `grid_rho1`   | the two GEMMs of the GGA minimum (tmp = z pv_0, u = z^T po_0) on the tile core, each contracted with the MO table in a tile epilogue, one launch per point span; four components or the value alone (one GEMM: the one of fewer rows); the meta-GGA tau row as three more GEMMs z pv_y dotted with po_y; second table likewise |
 | `grid_back`   | `response/sigma_df.py:525` `_fxc.back`, `:861`/`:1113` the flip back-projection | `grid_back`   | one GEMM on the tile core, F formed in shared memory, one launch per point span; four components or the value alone; the meta-GGA tau term as a fifth weight row in F; second table likewise |
 | `stda_coupling` | `stda/core.py:294` `_j_block`, `:323` the Coulomb diagonal of `csf_diagonal` | `stda_coupling` | a tile of J per block, its index lists (made once per CSF set on the device) in shared memory, the two small tables read in place (no gathered copies), J subtracted in place from the coupling matrix's block; the diagonal as a flat loop |
+| `eri_grad` | `ints/jaxints.py:589` `_eri_block`'s vjp (the gradient's ERI derivative), `grad/analytic.py:27` `_grad_eri_contract` | `eri_grad` | a block per ordered bra shell pair and chunk of ket pairs: the Gamma block in shared memory, folded into each ket primitive's Hermite expansion, the Hermite Coulomb integrals of each primitive quartet (Boys function and recursion in shared memory), contracted with the bra pair's three l+-1 derivative expansions; partials summed in a fixed order |
 
 `df_exchange` also runs the RPA exchange of a TDHF sigma's B half
 (`sigma_df.py:459` `_k2`), in the cheaper of two contraction orders, on an
@@ -20,12 +21,13 @@ f32 as register-tiled FMA, with `cp.async` staging.  Every wrapper runs its
 plain torch version on CPU tensors, launches its kernel on CUDA tensors (or
 raises), and counts its launches in the module's ``launches`` integer, and
 those of its exchange-only or RPA exchange (K1), meta-GGA tau (K2, K3) or
-diagonal (K4) mode also in ``mode_launches``.
+diagonal (K4) mode also in ``mode_launches``.  K5 (`eri_grad`) runs its
+primitive quartets on the plain f64 FMA pipes, not on the tile core.
 """
 
-from xtddft_tpu_torch.kernels import df_exchange, grid_back, grid_rho1, stda_coupling
+from xtddft_tpu_torch.kernels import df_exchange, eri_grad, grid_back, grid_rho1, stda_coupling
 
-MODULES = (df_exchange, grid_rho1, grid_back, stda_coupling)
+MODULES = (df_exchange, grid_rho1, grid_back, stda_coupling, eri_grad)
 # the kernels of every DF sigma build and DF Fock build (K4 runs in sTDA alone)
 DF_MODULES = (df_exchange, grid_rho1, grid_back)
 

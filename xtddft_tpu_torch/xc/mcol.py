@@ -91,7 +91,9 @@ def sf_kernel_mcol(spec: XCSpec, weights, rho0, nt: int = 20):
 
     sv0 = torch.cat([m_s[None, :], gm_s] + ([tm_s[None, :]] if mgga else []), dim=0)
     nk, ng = sv0.shape  # (4 or 5, ng)
-    H = torch.empty((ng, nk, nk), dtype=dt, device=dev)
+    # chunks joined, not written into a preallocated tensor: the gradient's
+    # Lagrangian (`grad/xcgrid.py`) evaluates this kernel under torch.func
+    H = []
     for g0 in range(0, ng, MCOL_POINTS):
         g = slice(g0, g0 + MCOL_POINTS)
         npts = sv0[:, g].shape[1]
@@ -105,10 +107,10 @@ def sf_kernel_mcol(spec: XCSpec, weights, rho0, nt: int = 20):
         tangents = torch.eye(nk, dtype=dt, device=dev)[:, :, None].expand(nk, nk, sv.shape[1])
         cols = torch.func.vmap(
             lambda t: torch.func.jvp(lambda s: grad_sv(s, *rest), (sv,), (t,))[1])(tangents)
-        H[g] = torch.einsum("t,batg->gab", wt, cols.reshape(nk, nk, nt, npts))
+        H.append(torch.einsum("t,batg->gab", wt, cols.reshape(nk, nk, nt, npts)))
     # SF-TDA kernel = f_xx + f_yy = 2 * transverse second derivative; this
     # is what makes the LDA limit equal (vxc_a-vxc_b)/(rho_a-rho_b).
-    return 2.0 * H * w[:, None, None]
+    return 2.0 * torch.cat(H) * w[:, None, None]
 
 
 def sf_mcol_tensor(fxcH_w, ao, orb_o, orb_v) -> torch.Tensor:
