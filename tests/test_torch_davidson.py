@@ -16,10 +16,6 @@ from xtddft_tpu_torch.response.reference_state import make_reference
 from xtddft_tpu_torch.scf.checkpoint import load_mf
 from xtddft_tpu_torch.solver.davidson import _max_space, davidson
 
-# the suite runs one worker process per core; torch's own intra-op threads
-# would only contend with them
-torch.set_num_threads(1)
-
 CKPT = str(pathlib.Path(__file__).parent / "data" / "fh_entry_ckpt.npz")
 
 

@@ -35,7 +35,6 @@ from xtddft_tpu_torch.response.reference_state import make_reference
 from xtddft_tpu_torch.scf import RKS, ROKS, UKS
 from xtddft_tpu_torch.scf.checkpoint import load_mf, save_mf
 
-torch.set_num_threads(1)
 
 FH = "F 0 0 0; H 0 0 1.0"
 OH = "O 0 0 0; H 0 0 0.97"

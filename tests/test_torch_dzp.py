@@ -44,10 +44,6 @@ from xtddft_tpu_torch.scf import ROHF, ROKS, project
 from xtddft_tpu_torch.scf.checkpoint import save_mf
 from xtddft_tpu_torch.scf.env import Env
 
-# the suite runs one worker process per core; torch's own intra-op threads
-# would only contend with them
-torch.set_num_threads(1)
-
 OH = "O 0 0 0; H 0 0 0.97"
 SETTINGS = dict(xc="b3lyp", grid_level=1, df=True, aux_mode="jk")
 ATOL = 1e-12

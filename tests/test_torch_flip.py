@@ -50,10 +50,6 @@ from xtddft_tpu_torch.scf.checkpoint import load_mf
 from xtddft_tpu_torch.xc import interface as xci
 from xtddft_tpu_torch.xc.mcol import sf_kernel_mcol
 
-# the suite runs one worker process per core; torch's own intra-op threads
-# would only contend with them
-torch.set_num_threads(1)
-
 CKPT = str(pathlib.Path(__file__).parent / "data" / "fh_entry_ckpt.npz")
 RTOL = 1e-10
 NZ = 3

@@ -62,7 +62,6 @@ from xtddft_tpu_torch.scf.checkpoint import load_mf
 from xtddft_tpu_torch.xc import interface as xci
 from xtddft_tpu_torch.xc import registry
 
-torch.set_num_threads(1)
 
 OH = "O 0 0 0; H 0 0 0.97"
 RTOL = 1e-12

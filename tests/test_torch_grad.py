@@ -39,7 +39,6 @@ from xtddft_tpu_torch.scf.driver import MeanField, SCF
 from xtddft_tpu_torch.scf.env import Env
 from xtddft_tpu_torch.xc import registry
 
-torch.set_num_threads(1)
 
 GOLDEN = json.loads((pathlib.Path(__file__).parent / "data" / "golden_torch_grad.json")
                     .read_text())["cases"]

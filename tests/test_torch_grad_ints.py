@@ -31,7 +31,6 @@ from xtddft_tpu_torch.ints.soc_ints import _nherm, nuclear_deriv2
 from xtddft_tpu_torch.ints.two_electron import eri_full
 from xtddft_tpu_torch.kernels import eri_grad as K5
 
-torch.set_num_threads(1)
 
 GOLDEN = json.loads((pathlib.Path(__file__).parent / "data" / "golden_torch_grad.json")
                     .read_text())

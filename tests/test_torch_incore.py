@@ -43,7 +43,6 @@ from xtddft_tpu_torch.scf.occupations import occ_from_irreps
 from xtddft_tpu_torch.xc import interface as xci
 from xtddft_tpu_torch.xc import registry
 
-torch.set_num_threads(1)
 
 OH = "O 0 0 0; H 0 0 0.97"
 FH_SIGMA = {"A1": (4, 2), "B1": (1, 1), "B2": (1, 1)}

@@ -89,6 +89,8 @@ _JAXISH = re.compile(
 
 
 def test_import_leaves_jax_unloaded():
+    from tests.suite import CHILD_LIMIT_S
+
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
@@ -98,7 +100,7 @@ def test_import_leaves_jax_unloaded():
         "print(repr(bad))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=CHILD_LIMIT_S)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "[]", r.stdout
 

@@ -16,10 +16,6 @@ from xtddft_tpu_torch.kernels import df_exchange as k1
 from xtddft_tpu_torch.kernels import grid_back as k3
 from xtddft_tpu_torch.kernels import grid_rho1 as k2
 
-# the suite runs one worker process per core; torch's own intra-op threads
-# would only contend with them
-torch.set_num_threads(1)
-
 NAUX, NMO, GC, NZ = 64, 40, 256, 3
 NOCC = 11
 RTOL = 1e-12

@@ -41,7 +41,6 @@ from xtddft_tpu_torch.response import sigma_df
 from xtddft_tpu_torch.response.reference_state import make_reference
 from xtddft_tpu_torch.scf.checkpoint import load_mf
 
-torch.set_num_threads(1)
 
 HOH = "O 0 0 0; H 0 0 0.98; H 0 0 -0.98"
 RTOL = 1e-12

@@ -29,10 +29,6 @@ from xtddft_tpu_torch.scf.checkpoint import load_mf, save_mf
 from xtddft_tpu_torch.scf.diis import DIIS
 from xtddft_tpu_torch.scf.env import Env
 
-# the suite runs one worker process per core; torch's own intra-op threads
-# would only contend with them
-torch.set_num_threads(1)
-
 FH = "F 0 0 0; H 0 0 1.0"
 # the UKS case: a bent radical, with no degenerate pair at the Fermi level
 # (OH's half-filled pi pair lets the aufbau occupation flip between the

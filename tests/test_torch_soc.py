@@ -28,7 +28,6 @@ import pathlib
 
 import numpy as np
 import pytest
-import torch
 
 from xtddft_tpu.chem import Molecule as JaxMolecule
 from xtddft_tpu.ints import build_layout as jax_build_layout
@@ -51,7 +50,6 @@ from xtddft_tpu_torch.scf.env import Env
 from xtddft_tpu_torch.soc import si, somf, x2c
 from xtddft_tpu_torch.soc.pipeline import run_soc_si
 
-torch.set_num_threads(1)
 
 DATA = pathlib.Path(__file__).parent / "data"
 CM = units.HA2EV * units.EV2CM_1

@@ -23,7 +23,6 @@ return the one the action test compiled).
 
 import numpy as np
 import pytest
-import torch
 
 from xtddft_tpu.scf import stability as jax_stability
 from xtddft_tpu.scf.checkpoint import load_mf as jax_load_mf
@@ -37,7 +36,6 @@ from xtddft_tpu_torch.scf.stability import (
     stable_scf,
 )
 
-torch.set_num_threads(1)
 
 H2 = "H 0 0 0; H 0 0 0.74"
 H2_STRETCHED = "H 0 0 0; H 0 0 2.2"

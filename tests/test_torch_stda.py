@@ -35,7 +35,6 @@ from xtddft_tpu_torch.scf import UKS
 from xtddft_tpu_torch.scf.checkpoint import load_mf, save_mf
 from xtddft_tpu_torch.stda import STDA, core, diagnostics
 
-torch.set_num_threads(1)
 
 TOL = 1e-8
 

@@ -46,7 +46,6 @@ from xtddft_tpu_torch.response.reference_state import make_reference
 from xtddft_tpu_torch.scf import RHF, UHF
 from xtddft_tpu_torch.scf.checkpoint import load_mf, save_mf
 
-torch.set_num_threads(1)
 
 FH = "F 0 0 0; H 0 0 1.0"
 PENCIL_EV = 1e-8

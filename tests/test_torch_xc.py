@@ -13,10 +13,6 @@ from xtddft_tpu.xc import registry as jax_registry
 from xtddft_tpu_torch.xc import interface as xci
 from xtddft_tpu_torch.xc import registry
 
-# the suite runs one worker process per core; torch's own intra-op threads
-# would only contend with them
-torch.set_num_threads(1)
-
 NPTS, NZ = 300, 3
 RTOL = 1e-10
 

@@ -12,10 +12,6 @@ from xtddft_tpu.scf.checkpoint import load_mf as jax_load_mf
 from xtddft_tpu_torch.methods.drivers import XTDA
 from xtddft_tpu_torch.scf.checkpoint import load_mf
 
-# the suite runs one worker process per core; torch's own intra-op threads
-# would only contend with them
-torch.set_num_threads(1)
-
 CKPT = str(pathlib.Path(__file__).parent / "data" / "fh_entry_ckpt.npz")
 
 
